@@ -4,9 +4,11 @@
     python3 chip_smoke.py [--seed 0]
 
 Phase 0  requires CUDA, prints the card (nvidia-smi) and builds the
-         hand-written kernel (csrc/sw_allpairs.cu, nvcc, sm_90a).
-Phase 1  holds the kernel against its plain PyTorch version on the card,
-         exactly, on the test corpora and on a production-shaped
+         hand-written kernels (csrc/sw_allpairs.cu and
+         csrc/prefilter_dense.cu, one nvcc each, in parallel, sm_90a),
+         printing each one's registers and spills.
+Phase 1  holds the SW kernel against its plain PyTorch version on the
+         card, exactly, on the test corpora and on a production-shaped
          workload (the golden bundle's 305 query ORFs x 691 target ORFs,
          targets x20), and times both (true DP cells per second).
 Phase 2  runs the golden bundle's DBs through the CLI `predictmatch`
@@ -16,16 +18,34 @@ Phase 3  builds a real-size corpus from the golden bundle and --seed
          (COPIES point-mutated copies of each golden genome; the golden
          spacers plus SETS random sets of 3 spacers) and runs
          `predictmatch` with the host engine (a fresh process, as a user
-         runs it) and with the GPU engine forced on (in this process, so
-         the kernel's launches are counted), each on its own copy of the
-         DBs; both texts must agree. A sample of query rows of the
-         largest block the kernel scored is then held against the plain
-         version on the card.
+         runs it) and with the GPU scoring engine forced on and the host
+         prefilter (in this process, so the kernel's launches are
+         counted), each on its own copy of the DBs; both texts must
+         agree. A sample of query rows of the largest block the kernel
+         scored is then held against the plain version on the card. It
+         prints the auto gate's prefilter choice for the corpus's shape.
+Phase 4  the dense prefilter's kernels (counts and emit): (a) against
+         their plain versions, exactly, on the `cuda` cases of
+         tests/test_torch_prefilter_dense.py, and match_pairs with small
+         chunk and emit bounds against the numpy oracle; (b) at the
+         production shape (phase 3's query k-mer rows x its whole masked
+         target), exact and timed, with two of the auto gate's constants
+         (the whole dense pass's cells per second, and the fixed cost of
+         a dense run in a fresh process); (c) `predictmatch` through the
+         CLI on phase 3's corpus (its own DB copy) with
+         --prefilter-engine device --use-tpu 0, in this process so that
+         the launches are counted, whose text must equal phase 3's
+         host-engine text with both kernels launched; (d) the dense and
+         host routes in fresh processes, as a user runs them, at two
+         shapes (phase 3's corpus, and its first SMALL_SETS spacer sets
+         against the same target), their texts equal, and the gate's
+         host-work terms fitted to the two walls' differences.
 
 Every failure exits non-zero. The last two lines of standard output are
 the kernel report and the run's result, one JSON object each.
 """
 import argparse
+import concurrent.futures
 import contextlib
 import glob
 import io
@@ -40,11 +60,21 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "spacepharer_tpu_torch/csrc/sw_allpairs.cu"
-REPLACES = "spacepharer_tpu/ops/sw_packed.py:81"
+KERNELS = {   # library name -> (source, the TPU kernel it replaces)
+    "sw_allpairs": ("spacepharer_tpu_torch/csrc/sw_allpairs.cu",
+                    "spacepharer_tpu/ops/sw_packed.py:81"),
+    "prefilter_dense": ("spacepharer_tpu_torch/csrc/prefilter_dense.cu",
+                        "spacepharer_tpu/ops/prefilter_dense.py:256"),
+}
+EMIT_REPLACES = "spacepharer_tpu/ops/prefilter_dense.py:228"
 COPIES = 100          # mutated copies of each golden genome (phase 3)
 SETS = 2000           # random spacer sets added to the golden ones
+SMALL_SETS = 20       # random sets of phase 4(d)'s small query side
 CHECK_ROWS = 64       # query rows of phase 3's largest block checked
+P1_DUP = 20           # phase 1: golden target ORFs repeated this often
+P1_KERNEL_CALLS = 10  # phase 1: calls per timed chain, kernel ...
+P1_PLAIN_CALLS = 2    # ... and plain version
+P4_KERNEL_CALLS = 3   # phase 4(b): calls per timed kernel chain
 
 
 def _golden_dir(tmp):
@@ -131,7 +161,7 @@ def _chain_ms(fn, args, go, ge, n):
     return start.elapsed_time(stop) / n
 
 
-def phase1(dev, golden, dup=20, n_kernel=10, n_plain=2):
+def phase1(dev, golden):
     import torch
     from spacepharer_tpu_torch.io.setdb import SetDB
     from spacepharer_tpu_torch.ops import sw_packed
@@ -161,7 +191,7 @@ def phase1(dev, golden, dup=20, n_kernel=10, n_plain=2):
     qf, qo = qdb.orf_aa_encoded()
     tf, to = tdb.orf_aa_encoded()
     qs = [qf[qo[i]:qo[i + 1]] for i in range(qdb.n_orfs)]
-    ts = [tf[to[i]:to[i + 1]] for i in range(tdb.n_orfs)] * dup
+    ts = [tf[to[i]:to[i + 1]] for i in range(tdb.n_orfs)] * P1_DUP
     biases = [sw_bias_i8(q, m) for q in qs]
     args = _to_device(dev, sw_packed.pack_queries(qs, m.scores, biases),
                       sw_packed.pack_targets(ts))
@@ -173,13 +203,14 @@ def phase1(dev, golden, dup=20, n_kernel=10, n_plain=2):
           f"{err}")
     if err:
         raise AssertionError("phase1 production: kernel != plain")
-    cells = int(np.diff(qo).sum()) * int(np.diff(to).sum()) * dup
+    cells = int(np.diff(qo).sum()) * int(np.diff(to).sum()) * P1_DUP
     # turns: plain, kernel, kernel, plain
-    plain_ms = [_chain_ms(sw_packed.sw_allpairs_plain, args, 16, 2, n_plain)]
-    kernel_ms = [_chain_ms(sw_packed.sw_allpairs, args, 16, 2, n_kernel)
-                 for _ in range(2)]
+    plain_ms = [_chain_ms(sw_packed.sw_allpairs_plain, args, 16, 2,
+                          P1_PLAIN_CALLS)]
+    kernel_ms = [_chain_ms(sw_packed.sw_allpairs, args, 16, 2,
+                           P1_KERNEL_CALLS) for _ in range(2)]
     plain_ms.append(_chain_ms(sw_packed.sw_allpairs_plain, args, 16, 2,
-                              n_plain))
+                              P1_PLAIN_CALLS))
     k_ms, p_ms = min(kernel_ms), min(plain_ms)
     print(f"phase1 timing: {cells} true cells per call; kernel ms "
           f"{kernel_ms} -> {cells / (k_ms * 1e-3):.6g} cells/s; plain ms "
@@ -240,9 +271,12 @@ def _mutate(seq, rate, rng):
 def build_corpus(golden, tmp, seed):
     """Target and control SetDBs of COPIES 2%-mutated copies of each
     golden genome, and a query SetDB of the golden spacers plus SETS
-    random sets of 3 spacers (25-45 nt); saved once per engine under
-    tmp/<engine>/ (a search persists its target index beside the DBs).
-    Returns {engine: [query, targets, targets_rev]}."""
+    random sets of 3 spacers (25-45 nt), and a small one of its first
+    SMALL_SETS random sets; saved once per run under tmp/<run>/ (a search
+    persists its target index or masked target beside the DBs). Returns
+    {run: [query, targets, targets_rev]} for the runs host, gpu, dense
+    and dense_fresh (the whole query side) and host_small and
+    dense_small."""
     from spacepharer_tpu_torch.io.setdb import (SetDB, build_setdb_from_fasta,
                                                 build_setdb_from_spacers)
     from spacepharer_tpu_torch.io.spacer_formats import SpacerRecord
@@ -280,13 +314,18 @@ def build_corpus(golden, tmp, seed):
             h = f"set{si:06d}_1_100_{pi + 1}_spacer_{pi * 61}_{n}"
             records.append(SpacerRecord(h, h, s.tobytes(), fi))
     qdb = build_setdb_from_spacers(records, names)
+    n_small = len(qg.set_names) + SMALL_SETS
+    qsmall = build_setdb_from_spacers(
+        [r for r in records if r.file_idx < n_small], names[:n_small])
     paths = {}
-    for engine in ("host", "gpu"):
-        paths[engine] = []
-        for name, db in (("query", qdb), ("targets", tdb),
+    for run, q in (("host", qdb), ("gpu", qdb), ("dense", qdb),
+                   ("dense_fresh", qdb), ("host_small", qsmall),
+                   ("dense_small", qsmall)):
+        paths[run] = []
+        for name, db in (("query", q), ("targets", tdb),
                          ("targets_rev", cdb)):
-            paths[engine].append(os.path.join(tmp, engine, name))
-            db.save(paths[engine][-1])
+            paths[run].append(os.path.join(tmp, run, name))
+            db.save(paths[run][-1])
     print(f"phase3 corpus: {len(files)} genomes, {nt} nt, {tdb.n_orfs} "
           f"target ORFs; {len(names)} spacer sets, {qdb.n_orfs} query ORFs")
     return paths
@@ -322,6 +361,25 @@ def _check_block(dev, block, seed):
     return err
 
 
+def _fresh_run(base, paths, run, *flags):
+    """`predictmatch` through the CLI on paths[run] in a fresh process,
+    as a user runs it: (wall s, result text, its 'Time for' lines)."""
+    out = os.path.join(base, f"{run}.tsv")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "spacepharer_tpu_torch", "predictmatch",
+         *paths[run], out, os.path.join(base, f"tmp_{run}"), *flags],
+        cwd=REPO, capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{run} run exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    with open(out) as fh:
+        text = fh.read()
+    return wall, text, [ln for ln in proc.stdout.splitlines()
+                        if ln.startswith("Time for")]
+
+
 def phase3(dev, golden, tmp, seed):
     from spacepharer_tpu_torch.logging import timings
     from spacepharer_tpu_torch.ops import sw_packed
@@ -330,19 +388,8 @@ def phase3(dev, golden, tmp, seed):
     base = os.path.join(tmp, "p3")
     paths = build_corpus(golden, base, seed)
 
-    # host engine: a fresh process, as a user runs it
-    host_out = os.path.join(base, "host.tsv")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "spacepharer_tpu_torch", "predictmatch",
-         *paths["host"], host_out, os.path.join(base, "tmp_host"), "--use-tpu", "0"],
-        cwd=REPO, capture_output=True, text=True)
-    host_wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"phase3 host run exited {proc.returncode}:\n"
-                             f"{proc.stderr[-4000:]}")
-    host_stages = [ln for ln in proc.stdout.splitlines()
-                   if ln.startswith("Time for")]
+    host_wall, host_text, host_stages = _fresh_run(base, paths, "host",
+                                                   "--use-tpu", "0")
 
     # GPU engine forced on, in this process: count launches and the
     # candidate cells the device engine is handed, and keep the largest
@@ -379,7 +426,7 @@ def phase3(dev, golden, tmp, seed):
         with contextlib.redirect_stderr(io.StringIO()):
             rc = _cli(["predictmatch", *paths["gpu"], gpu_out,
                        os.path.join(base, "tmp_gpu"), "--use-tpu", "1",
-                       "-v", "1"])
+                       "--prefilter-engine", "host", "-v", "1"])
     finally:
         pm._search_tpu = search_tpu
         sw_packed.device_allpairs_scores = allpairs
@@ -388,8 +435,8 @@ def phase3(dev, golden, tmp, seed):
     after = timings()
     if rc != 0:
         raise AssertionError(f"phase3 GPU run exited {rc}")
-    with open(host_out) as fh, open(gpu_out) as gh:
-        host_text, gpu_text = fh.read(), gh.read()
+    with open(gpu_out) as gh:
+        gpu_text = gh.read()
     n_hits = sum(1 for ln in gpu_text.splitlines() if ln.startswith(">"))
     print(f"phase3 host engine: wall {host_wall:.3f} s (fresh process, "
           f"own DB copy; "
@@ -407,8 +454,351 @@ def phase3(dev, golden, tmp, seed):
     if launches <= 0:
         raise AssertionError("phase3: the kernel was never launched")
     err = _check_block(dev, largest, seed)
+    _print_gate(paths["host"])
     return {"launches": launches, "host_wall": host_wall,
-            "gpu_wall": gpu_wall, "dense_cells": dense, "max_abs_err": err}
+            "gpu_wall": gpu_wall, "dense_cells": dense, "max_abs_err": err,
+            "base": base, "paths": paths, "host_text": host_text}
+
+
+def _gate_shape(paths):
+    """(query k-mers, target residues) of a corpus, as the auto
+    prefilter gate counts them."""
+    from spacepharer_tpu_torch.io.setdb import SetDB
+    from spacepharer_tpu_torch.ops.prefilter import PrefilterParams
+    span = PrefilterParams().pattern_span
+    q_lens = np.diff(SetDB.load(paths[0]).orf_aa_offsets)
+    return (int(np.maximum(q_lens - span + 1, 0).sum()),
+            int(np.diff(SetDB.load(paths[1]).orf_aa_offsets).sum()))
+
+
+def _print_gate(paths):
+    """The auto prefilter gate's decision for the corpus's shape, as a
+    fresh search of it would ask (no persisted index)."""
+    from spacepharer_tpu_torch.pipeline import predictmatch as pm
+    nk, t_res = _gate_shape(paths)
+    viable = pm.dense_prefilter_viable(nk, t_res, has_idx=False)
+    print(f"phase3 auto prefilter gate for {nk} k-mers x {t_res} target "
+          f"residues (fresh index): {'dense' if viable else 'host'}")
+
+
+# ---------------------------------------------------------------- phase 4
+
+def _dense_tests():
+    """tests/test_torch_prefilter_dense.py, loaded by path: phase 4 runs
+    its `cuda` cases."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_prefilter_dense",
+        os.path.join(REPO, "tests", "test_torch_prefilter_dense.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _hit_err(a, b, n_pos):
+    """max |a - b| over two hit lists (gi, gj) compared as sorted sets;
+    lists of different lengths fail."""
+    ka = np.sort(a[0].cpu().numpy().astype(np.int64) * n_pos
+                 + a[1].cpu().numpy())
+    kb = np.sort(b[0].cpu().numpy().astype(np.int64) * n_pos
+                 + b[1].cpu().numpy())
+    if len(ka) != len(kb):
+        raise AssertionError(f"phase4: {len(ka)} hits emitted, plain "
+                             f"has {len(kb)}")
+    if not len(ka):
+        return 0
+    return int(max(np.abs(ka // n_pos - kb // n_pos).max(),
+                   np.abs(ka % n_pos - kb % n_pos).max()))
+
+
+def _dense_check(name, inputs):
+    """Counts and emitted hits of one chunk, kernel vs plain on the same
+    card tensors. Returns (counts error, emit error, hits)."""
+    from spacepharer_tpu_torch.ops import prefilter_dense as pd
+    counts = pd.prefilter_dense_counts(*inputs)
+    plain = pd.prefilter_dense_counts_plain(*inputs)
+    c_err = int((counts - plain).abs().max())
+    hit = pd.hit_tiles(counts)
+    e_err = _hit_err(pd.prefilter_dense_emit(*inputs, *hit),
+                     pd.prefilter_dense_emit_plain(*inputs, *hit),
+                     inputs[3].numel())
+    print(f"phase4 {name}: {inputs[0].shape[0]} rows x {inputs[3].numel()} "
+          f"positions, {hit[3]} hits in {hit[0].numel()} tiles; "
+          f"max|counts kernel-plain| = {c_err}, emitted vs plain max err "
+          f"{e_err}")
+    if c_err or e_err:
+        raise AssertionError(f"phase4 {name}: kernel != plain")
+    return c_err, e_err, hit[3]
+
+
+def phase4_cases(dev):
+    """(a): the `cuda` cases of the dense prefilter's tests (the test
+    corpora, a zero-hit input, a multi-chunk target with X letters and
+    ORF boundaries): counts and emit against their plain versions, and
+    match_pairs with small chunk and emit bounds against the numpy
+    oracle. Returns the max errors of counts and emit."""
+    from spacepharer_tpu_torch.ops import prefilter_dense as pd
+    tests = _dense_tests()
+    errs = [0, 0]
+    for name in tests.CUDA_CASES:
+        params, seed_m, batch, flat, bval = tests.cuda_case(name)
+        thr = params.kmer_threshold()
+        c_err, e_err, n = _dense_check(name, pd.dense_inputs(
+            batch, flat, bval, seed_m.scores, thr, dev))
+        errs = [max(errs[0], c_err), max(errs[1], e_err)]
+        if (n == 0) != (name == "zero_hits"):
+            raise AssertionError(f"phase4 {name}: {n} hits")
+        got, launched = tests.match_pairs_small_bounds(batch, flat, bval,
+                                                       seed_m.scores, thr)
+        same = got == tests.pairs(*pd.match_pairs_numpy(
+            batch, flat, bval, seed_m.scores, thr))
+        print(f"phase4 {name}: match_pairs on the card (counts x"
+              f"{launched[0]}, emit x{launched[1]}) equals the numpy "
+              f"oracle: {same}")
+        if not same:
+            raise AssertionError(f"phase4 {name}: match_pairs != oracle")
+    return errs
+
+
+def _chain(fn, inputs, rest, n):
+    """Mean ms of n data-dependent calls (each call's thresholds depend
+    on the previous call's output), timed with CUDA events and ended by
+    a host fetch; and the last output. Phase 4(a) has launched both
+    kernels already, so no call pays a module load."""
+    import torch
+
+    def first(out):
+        return (out[0] if isinstance(out, tuple) else out).flatten()[:1].sum()
+
+    qexp, thr = inputs[0], inputs[1]
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    out = None
+    start.record()
+    for _ in range(n):
+        t = thr if out is None else thr + (first(out) & 0).to(torch.int32)
+        out = fn(qexp, t, *inputs[2:], *rest)
+    stop.record()
+    first(out).item()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n, out
+
+
+def phase4_production(dev, p3):
+    """(b): phase 3's query k-mer rows (one chunk) x its whole masked
+    target, exact against plain (one plain call each) and timed; and two
+    of the gate's constants."""
+    import torch
+    from spacepharer_tpu_torch.io.setdb import SetDB
+    from spacepharer_tpu_torch.ops import prefilter_dense as pd
+    from spacepharer_tpu_torch.ops.bias import local_aa_bias_batch
+    from spacepharer_tpu_torch.ops.matrices import load_matrix
+    from spacepharer_tpu_torch.ops.prefilter import (PrefilterParams,
+                                                     build_masked_flat,
+                                                     load_masked_flat)
+    params = PrefilterParams()
+    seed_m = load_matrix(params.seed_matrix, 8.0)
+    qdb = SetDB.load(p3["paths"]["host"][0])
+    qf, qo = qdb.orf_aa_encoded()
+    q_all = [qf[qo[k]:qo[k + 1]] for k in range(qdb.n_orfs)]
+    keys, rows = [], 0
+    for k in range(len(q_all)):          # one query chunk, as the port
+        if keys and rows + len(q_all[k]) > pd.MAX_Q_ROWS:
+            break
+        keys.append(k)
+        rows += len(q_all[k])
+    batch = pd.build_query_batch(q_all, keys,
+                                 local_aa_bias_batch(q_all, seed_m), params)
+    tpath = p3["paths"]["host"][1]
+    masked = load_masked_flat(tpath, params)
+    if masked is None:
+        tdb = SetDB.load(tpath)
+        tf, to = tdb.orf_aa_encoded()
+        masked = build_masked_flat(None, params, packed=(tf, to))
+    flat = np.ascontiguousarray(masked[0])
+    starts = np.asarray(masked[1], dtype=np.int64)
+    bval = pd.target_boundary_valid(starts, batch.span)
+    kmer_thr = params.kmer_threshold()
+    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores, kmer_thr, dev)
+    cells = batch.n_rows * len(flat)
+    print(f"phase4 production: {len(keys)} query ORFs, {batch.n_rows} "
+          f"k-mer rows ({int(batch.kmer_valid.sum())} valid) x {len(flat)} "
+          f"target residues = {cells} dense cells")
+
+    k_ms, c_kernel = _chain(pd.prefilter_dense_counts, inputs, (),
+                            P4_KERNEL_CALLS)
+    p_ms, c_plain = _chain(pd.prefilter_dense_counts_plain, inputs, (), 1)
+    c_err = int((c_kernel - c_plain).abs().max())
+    hit = pd.hit_tiles(c_kernel)
+    e_k_ms, e_kernel = _chain(pd.prefilter_dense_emit, inputs, hit,
+                              P4_KERNEL_CALLS)
+    e_p_ms, e_plain = _chain(pd.prefilter_dense_emit_plain, inputs, hit, 1)
+    e_err = _hit_err(e_kernel, e_plain, inputs[3].numel())
+    print(f"phase4 production counts: kernel {k_ms} ms -> "
+          f"{cells / (k_ms * 1e-3):.6g} cells/s; plain {p_ms} ms -> "
+          f"{cells / (p_ms * 1e-3):.6g} cells/s; max|kernel-plain| = "
+          f"{c_err}")
+    print(f"phase4 production emit: {hit[3]} hits in {hit[0].numel()} of "
+          f"{c_kernel.numel()} tiles; kernel {e_k_ms} ms; plain {e_p_ms} "
+          f"ms; emitted vs plain max err {e_err}")
+    if c_err or e_err:
+        raise AssertionError("phase4 production: kernel != plain")
+    del c_plain, e_plain
+    torch.cuda.synchronize()
+
+    # the gate's constants: the whole dense pass at this shape, in cells
+    # as the gate counts them (query k-mers x target residues), and the
+    # fixed cost of a dense run in a fresh process
+    nk = sum(max(len(q_all[k]) - batch.span + 1, 0) for k in keys)
+    t0 = time.perf_counter()
+    pd.match_pairs(batch, flat, bval, seed_m.scores, kmer_thr, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    proc = subprocess.run([sys.executable, "-c",
+                           "import chip_smoke; chip_smoke.fixed_cost_probe()"],
+                          cwd=REPO, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase4 fixed-cost probe exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    fixed = float(proc.stdout.split()[-1])
+    rate = nk * len(flat) / wall
+    print(f"phase4 gate constants: whole dense pass {wall:.3f} s -> "
+          f"{rate:.6g} cells/s ({nk} k-mers x {len(flat)} residues); fixed "
+          f"cost of a dense run in a fresh process {fixed:.3f} s")
+    return {"counts": (c_err, k_ms, p_ms), "emit": (e_err, e_k_ms, e_p_ms),
+            "fixed_s": fixed, "cells_per_s": rate}
+
+
+def fixed_cost_probe():
+    """Print the seconds from an imported port to the end of a tiny
+    dense run on the card: CUDA context, kernel library load (built
+    already), first launches."""
+    import torch
+    from spacepharer_tpu_torch.ops import prefilter_dense as pd
+    params, seed_m, batch, flat, bval = _dense_tests().cuda_case(
+        "seed0_mask0")
+    t0 = time.perf_counter()
+    pd.match_pairs(batch, flat, bval, seed_m.scores, params.kmer_threshold(),
+                   "cuda")
+    torch.cuda.synchronize()
+    print(time.perf_counter() - t0)
+
+
+def phase4_predictmatch(p3, tmp):
+    """(c): predictmatch through the CLI with the dense prefilter on the
+    card and the host scoring engine; the text must equal phase 3's.
+    CUDA is initialised in this process, so the control search is not
+    forked: both searches run here, one after the other, through B2."""
+    from spacepharer_tpu_torch.logging import timings
+    from spacepharer_tpu_torch.ops import prefilter_dense as pd
+    out = os.path.join(tmp, "p4", "dense.tsv")
+    os.makedirs(os.path.dirname(out))
+    match_pairs = pd.match_pairs
+    pass_s = []
+
+    def _timed(*a, **kw):           # match_pairs ends in a host fetch
+        t = time.perf_counter()
+        hits = match_pairs(*a, **kw)
+        pass_s.append(time.perf_counter() - t)
+        return hits
+
+    pd.match_pairs = _timed
+    pd.counts_launches = pd.emit_launches = pd.cells = 0
+    before = timings()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = _cli(["predictmatch", *p3["paths"]["dense"], out,
+                       os.path.join(tmp, "p4", "tmp"), "--prefilter-engine",
+                       "device", "--use-tpu", "0", "-v", "1"])
+    finally:
+        pd.match_pairs = match_pairs
+    wall = time.perf_counter() - t0
+    launches = {"prefilter_dense_counts": pd.counts_launches,
+                "prefilter_dense_emit": pd.emit_launches}
+    after = timings()
+    if rc != 0:
+        raise AssertionError(f"phase4 dense predictmatch exited {rc}")
+    with open(out) as fh:
+        same = fh.read() == p3["host_text"]
+    print(f"phase4 predictmatch --prefilter-engine device --use-tpu 0 in "
+          f"this process: wall {wall:.3f} s (search "
+          f"{after.get('search', 0) - before.get('search', 0):.3f} s, then "
+          f"search_rev "
+          f"{after.get('search_rev', 0) - before.get('search_rev', 0):.3f} "
+          f"s; dense passes {pass_s}); launches {launches}; dense cells on "
+          f"the card {pd.cells}; text identical to the host engine's: "
+          f"{same}")
+    if not same:
+        raise AssertionError("phase4: dense-prefilter text differs from "
+                             "the host engine's")
+    if min(launches.values()) <= 0:
+        raise AssertionError("phase4: a dense kernel was never launched")
+    return launches
+
+
+def phase4_routes(p3, p4):
+    """(d): the dense and host routes in fresh processes, as a user runs
+    them (each forks its control search onto the host engine), at phase
+    3's shape and at its small query side against the same target; the
+    texts must agree. Fits the gate's two host-work terms of the dense
+    route (per query k-mer, per target residue) so that its estimate of
+    dense less host seconds equals the measured difference of the walls
+    at both shapes, given (b)'s fixed cost and cell rate and the host
+    walk's constants.
+
+    The small query side runs with --fdr 0: at the default 0.05 the FDR
+    step of the shared host code (stats/fdr.py) indexes past its score
+    list on it (ROADMAP), while --fdr 0 takes its short path. Both
+    routes pass the same flag, and the search stages they differ in do
+    not read it."""
+    from spacepharer_tpu_torch.pipeline import predictmatch as pm
+    base, paths = p3["base"], p3["paths"]
+    small = ("--fdr", "0")
+    h_wall, h_text, _ = _fresh_run(base, paths, "host_small", "--use-tpu",
+                                   "0", *small)
+    x, nks = [], []
+    for label, run, host_wall, host_text, flags in (
+            ("phase-3 corpus", "dense_fresh", p3["host_wall"],
+             p3["host_text"], ()),
+            ("small query side", "dense_small", h_wall, h_text, small)):
+        wall, text, _ = _fresh_run(base, paths, run, "--prefilter-engine",
+                                   "device", "--use-tpu", "0", *flags)
+        nk, t_res = _gate_shape(paths[run])
+        gate = pm.dense_prefilter_viable(nk, t_res, has_idx=False)
+        print(f"phase4 fresh processes, {label} ({nk} k-mers x {t_res} "
+              f"residues): dense route {wall:.3f} s, host route "
+              f"{host_wall:.3f} s; texts identical {text == host_text}; "
+              f"the gate picks {'dense' if gate else 'host'}, the faster "
+              f"was {'dense' if wall < host_wall else 'host'}")
+        if text != host_text:
+            raise AssertionError(f"phase4 {label}: dense and host routes' "
+                                 f"texts differ")
+        x.append(wall - host_wall + t_res * pm._HOST_POSTINGS_S_PER_RES
+                 + nk * pm._HOST_WALK_S_PER_KMER - p4["fixed_s"]
+                 - nk * t_res / p4["cells_per_s"])
+        nks.append(nk)
+    per_kmer = (x[0] - x[1]) / (nks[0] - nks[1])
+    per_res = (x[1] - per_kmer * nks[1]) / t_res
+    print(f"phase4 gate fit: host work of the dense route {per_kmer:.6g} s "
+          f"per query k-mer, {per_res:.6g} s per target residue")
+
+
+def _build_all():
+    """Build every kernel library at once (one nvcc each) and print each
+    one's ptxas registers and spills."""
+    from spacepharer_tpu_torch.ops import _cuda
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
+        for fut in [ex.submit(_cuda.library, name) for name in KERNELS]:
+            fut.result()
+    print(f"phase0 kernels ready in {time.perf_counter() - t0:.3f} s")
+    for name in KERNELS:
+        print(f"phase0 {name}: nvcc "
+              f"{_cuda.build_seconds.get(name, 0):.3f} s")
+        for line in _cuda.build_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print("phase0 ptxas:", line.strip())
 
 
 def main():
@@ -430,18 +820,10 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    from spacepharer_tpu_torch.ops import _cuda
     kind = torch.cuda.get_device_name(0)
     print(f"phase0 torch {torch.__version__} CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
-
-    t0 = time.perf_counter()
-    _cuda.library("sw_allpairs")
-    print(f"phase0 sw_allpairs ready in {time.perf_counter() - t0:.3f} s "
-          f"(nvcc {_cuda.build_seconds.get('sw_allpairs', 0):.3f} s)")
-    for line in _cuda.build_log.get("sw_allpairs", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("phase0 ptxas:", line.strip())
+    _build_all()
 
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -449,13 +831,26 @@ def main():
         p1 = phase1(dev, golden)
         phase2(golden, tmp)
         p3 = phase3(dev, golden, tmp, args.seed)
+        case_errs = phase4_cases(dev)
+        p4 = phase4_production(dev, p3)
+        p4_launches = phase4_predictmatch(p3, tmp)
+        phase4_routes(p3, p4)
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "sw_allpairs", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": p3["launches"],
-        "max_abs_err": max(p1["max_abs_err"], p3["max_abs_err"]),
-        "ms": p1["ms"],
-        "plain_ms": p1["plain_ms"]}]}))
+    sw_src, sw_replaces = KERNELS["sw_allpairs"]
+    pd_src, pd_replaces = KERNELS["prefilter_dense"]
+    report = [{"name": "sw_allpairs", "route": "cuda", "source": sw_src,
+               "replaces": sw_replaces, "launches": p3["launches"],
+               "max_abs_err": max(p1["max_abs_err"], p3["max_abs_err"]),
+               "ms": p1["ms"], "plain_ms": p1["plain_ms"]}]
+    for i, (name, replaces) in enumerate((
+            ("prefilter_dense_counts", pd_replaces),
+            ("prefilter_dense_emit", EMIT_REPLACES))):
+        err, ms, plain_ms = p4[name.rsplit("_", 1)[1]]
+        report.append({"name": name, "route": "cuda", "source": pd_src,
+                       "replaces": replaces, "launches": p4_launches[name],
+                       "max_abs_err": max(case_errs[i], err), "ms": ms,
+                       "plain_ms": plain_ms})
+    print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

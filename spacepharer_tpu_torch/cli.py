@@ -119,7 +119,7 @@ def _add_predict_flags(p):
     p.add_argument("--prefilter-engine", type=str, default="auto",
                    choices=("auto", "host", "device"),
                    help="k-mer matching engine: host index walk or dense "
-                        "device (MXU) matching; auto picks by workload "
+                        "matching on the GPU; auto picks by workload "
                         "(output is byte-identical either way)")
     p.add_argument("--split-memory-limit",
                    type=_ranged(int, 0, None, "--split-memory-limit"),

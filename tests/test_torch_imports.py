@@ -21,6 +21,7 @@ def test_port_imports_no_jax():
         "import spacepharer_tpu_torch.pipeline.predictmatch\n"
         "import spacepharer_tpu_torch.ops.sw_packed\n"
         "import spacepharer_tpu_torch.ops.sw_tpu\n"
+        "import spacepharer_tpu_torch.ops.prefilter_dense\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'spacepharer_tpu'))\n"
         "assert 'torch' in sys.modules\n"

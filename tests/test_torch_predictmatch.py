@@ -83,9 +83,38 @@ def test_golden_cli_predictmatch_use_tpu_traced(golden_dbs, golden,
 
 @pytest.mark.parametrize("params", [
     pm.PredictParams(mesh=(1, 2)),
-    pm.PredictParams(prefilter=pm.PrefilterParams(engine="device")),
-], ids=["mesh", "dense_prefilter"])
+], ids=["mesh"])
 def test_unported_engines_raise(golden_dbs, params):
     (qdb, tdb, cdb), _ = golden_dbs
     with pytest.raises(NotImplementedError, match="not ported yet"):
         pm.predict_match(qdb, tdb, cdb, params)
+
+
+def test_golden_dense_prefilter_byte_identical(golden_dbs, monkeypatch):
+    """engine="device": the dense prefilter (on the CPU: the kernels'
+    plain versions) feeds the host scoring engine."""
+    from spacepharer_tpu_torch.ops import prefilter_dense
+    (qdb, tdb, cdb), text = golden_dbs
+    calls = []
+    orig = prefilter_dense.match_pairs
+    monkeypatch.setattr(prefilter_dense, "match_pairs",
+                        lambda *a, **kw: calls.append(kw["device"])
+                        or orig(*a, **kw))
+    params = pm.PredictParams(
+        prefilter=pm.PrefilterParams(engine="device"))
+    assert pm.predict_match(qdb, tdb, cdb, params).text == text
+    assert calls == ["cpu", "cpu"]        # forward and control searches
+
+
+def test_golden_cli_dense_prefilter(golden, tmp_path):
+    """The CLI's --prefilter-engine device with --use-tpu 0 (only the
+    prefilter on the device): golden bytes."""
+    from spacepharer_tpu_torch import cli
+    with open(os.path.join(golden, "result.tsv")) as fh:
+        text = fh.read()
+    out = tmp_path / "result.tsv"
+    rc = cli.main(["predictmatch", *_golden_paths(golden), str(out),
+                   str(tmp_path / "tmp"), "--prefilter-engine", "device",
+                   "--use-tpu", "0", "-v", "1"])
+    assert rc == 0
+    assert out.read_text() == text

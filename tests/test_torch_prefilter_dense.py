@@ -1,0 +1,304 @@
+"""The port's dense prefilter (ops/prefilter_dense.py) against the JAX
+package's, on the corpora of tests/test_prefilter_dense.py.
+
+Every quantity is an integer, so every comparison is exact. The CPU
+cases run the kernels' plain PyTorch versions and hold them against the
+JAX package: its host helpers, its Pallas counts kernel in interpret
+mode, its numpy oracle and its device_prefilter. The `cuda` cases hold
+the CUDA kernels against the plain versions on the card. JAX is imported
+only where the JAX side runs, so the `cuda` cases also run where JAX is
+not installed (`pytest -m cuda tests/test_torch_prefilter_dense.py` on a
+GPU box).
+"""
+import numpy as np
+import pytest
+import torch
+
+from spacepharer_tpu_torch.ops import prefilter_dense as pd
+from spacepharer_tpu_torch.ops.bias import local_aa_bias
+from spacepharer_tpu_torch.ops.matrices import load_matrix
+from spacepharer_tpu_torch.ops.prefilter import (
+    PrefilterParams, SimilarKmerEnumerator, build_masked_flat)
+
+
+def make_corpus(seed, n_targets=40, n_queries=12):
+    """tests/test_prefilter_dense.py::make_corpus: random targets with 5 %
+    X, short queries, each planted 3 times into the targets."""
+    rng = np.random.default_rng(seed)
+    targets = []
+    for _ in range(n_targets):
+        L = int(rng.integers(5, 120))
+        s = rng.integers(0, 20, size=L).astype(np.uint8)
+        s[rng.random(L) < 0.05] = 20
+        targets.append(s)
+    queries = [rng.integers(0, 20, size=int(rng.integers(9, 14))).astype(
+        np.uint8) for _ in range(n_queries)]
+    for q in queries:
+        for _ in range(3):
+            t = targets[int(rng.integers(0, n_targets))]
+            if len(t) <= len(q):
+                continue
+            pos = int(rng.integers(0, len(t) - len(q)))
+            t[pos:pos + len(q)] = q
+    return queries, targets
+
+
+def _case(seed, mask=False, **kw):
+    """(params, seed matrix, q_all, bias80, batch, masked flat, starts,
+    boundary validity) of a corpus, built by the port."""
+    queries, targets = make_corpus(seed, **kw)
+    params = PrefilterParams(mask=mask)
+    seed_m = load_matrix(params.seed_matrix, 8.0)
+    q_all = [np.asarray(q, np.int64) for q in queries]
+    bias80 = [local_aa_bias(q, seed_m) for q in q_all]
+    batch = pd.build_query_batch(q_all, list(range(len(q_all))), bias80,
+                                 params)
+    flat, starts = build_masked_flat(targets, params)
+    bval = pd.target_boundary_valid(starts, batch.span)
+    return params, seed_m, q_all, bias80, batch, flat, starts, bval
+
+
+def pairs(gi, gj):
+    return sorted(zip(np.asarray(gi).tolist(), np.asarray(gj).tolist()))
+
+
+# ------------------------------------------------------------ CPU parity
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_host_helpers_match_jax(seed):
+    """The verbatim host code: query batch, Qexp, boundary validity, the
+    numpy oracle and the stream reconstruction."""
+    from spacepharer_tpu.ops import prefilter_dense as jpd
+    from spacepharer_tpu.ops.prefilter import \
+        SimilarKmerEnumerator as JaxEnumerator
+    params, seed_m, q_all, bias80, batch, flat, starts, bval = _case(seed)
+    jb = jpd.build_query_batch(q_all, list(range(len(q_all))), bias80,
+                               params)
+    for f in ("q_flat", "q_starts", "kmer_thr", "kmer_valid", "offsets"):
+        np.testing.assert_array_equal(getattr(batch, f), getattr(jb, f))
+    assert (batch.span, batch.n_rows) == (jb.span, jb.n_rows)
+    np.testing.assert_array_equal(
+        pd.build_qexp(batch, seed_m.scores, 300),
+        jpd.build_qexp(jb, seed_m.scores, 300))
+    np.testing.assert_array_equal(
+        bval, jpd.target_boundary_valid(starts, jb.span))
+    thr = params.kmer_threshold()
+    gi, gj = pd.match_pairs_numpy(batch, flat, bval, seed_m.scores, thr,
+                                  chunk=777)
+    jgi, jgj = jpd.match_pairs_numpy(jb, flat, bval, seed_m.scores, thr,
+                                     chunk=777)
+    np.testing.assert_array_equal(gi, jgi)
+    np.testing.assert_array_equal(gj, jgj)
+    assert len(gi) > 0
+    got = pd.hits_to_streams(batch, gi, gj, flat, starts,
+                             SimilarKmerEnumerator(seed_m.scores))
+    want = jpd.hits_to_streams(jb, jgi, jgj, flat, starts,
+                               JaxEnumerator(seed_m.scores))
+    assert got.keys() == want.keys()
+    for k in got:
+        for a, b in zip(got[k], want[k]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_counts_match_pallas_interpret(seed):
+    """prep + the plain counts on the JAX kernel's padded tile grid,
+    against _device_prep_fn + _counts_pallas in interpret mode."""
+    import jax.numpy as jnp
+    from spacepharer_tpu.ops import prefilter_dense as jpd
+    params, seed_m, _, _, batch, flat, _, bval = _case(seed)
+    thr = params.kmer_threshold()
+    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores, thr, "cpu")
+    qexp, thr_t, letters, tval, offsets = inputs
+    R, C = qexp.shape[0], tval.numel()
+    bv = np.zeros(C, dtype=bool)
+    bv[:len(flat)] = bval
+    texp_tiles, tval_tiles = jpd._device_prep_fn(batch.span, offsets, thr)(
+        jnp.asarray(letters.numpy().astype(np.int32)), jnp.asarray(bv),
+        jnp.asarray(np.diag(seed_m.scores).astype(np.int32)))
+    np.testing.assert_array_equal(
+        tval.numpy(), np.asarray(tval_tiles).reshape(-1).astype(np.uint8))
+    thr_col = np.full((R, 1), float(jpd.THR_INVALID), dtype=np.float32)
+    thr_col[:batch.n_rows, 0] = batch.kmer_thr
+    want = np.asarray(jpd._counts_pallas(
+        jnp.asarray(jpd.build_qexp(batch, seed_m.scores, R),
+                    dtype=jnp.bfloat16),
+        jnp.asarray(thr_col), texp_tiles, tval_tiles,
+        interpret=True)).reshape(C // pd.TILE_T, R // pd.TILE_Q)
+    got = pd.prefilter_dense_counts(*inputs)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.sum() > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_match_pairs_matches_jax(seed):
+    """The port's match_pairs on the CPU (plain counts and emit) against
+    the numpy oracle and the JAX Pallas path in interpret mode."""
+    from spacepharer_tpu.ops import prefilter_dense as jpd
+    params, seed_m, _, _, batch, flat, _, bval = _case(seed)
+    thr = params.kmer_threshold()
+    got = pairs(*pd.match_pairs(batch, flat, bval, seed_m.scores, thr,
+                                device="cpu"))
+    assert got == pairs(*jpd.match_pairs_numpy(batch, flat, bval,
+                                               seed_m.scores, thr))
+    assert got == pairs(*jpd.match_pairs_device(
+        batch, flat, bval, seed_m.scores, thr, backend="pallas",
+        interpret=True, chunk=1024, extract_b=8))
+    assert len(got) > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("mask", [False, True])
+def test_device_prefilter_matches_jax(seed, mask):
+    """Final hits (target, score, diagonal) of the port's device_prefilter
+    on the CPU against the JAX package's (numpy backend)."""
+    from spacepharer_tpu.ops import prefilter_dense as jpd
+    from spacepharer_tpu.ops.prefilter import \
+        SimilarKmerEnumerator as JaxEnumerator
+    from spacepharer_tpu.ops.prefilter import \
+        build_masked_flat as jax_build_masked_flat
+    params, seed_m, q_all, bias80, _, flat, starts, _ = _case(seed, mask)
+    ungapped_m = load_matrix(params.ungapped_matrix, 2.0)
+    keys = list(range(len(q_all)))
+    _, targets = make_corpus(seed)
+    jflat, jstarts = jax_build_masked_flat(targets, params)
+    np.testing.assert_array_equal(flat, jflat)
+    np.testing.assert_array_equal(starts, jstarts)
+    got = pd.device_prefilter(q_all, keys, bias80, flat, starts, params,
+                              SimilarKmerEnumerator(seed_m.scores), seed_m,
+                              ungapped_m, device="cpu")
+    want = jpd.device_prefilter(q_all, keys, bias80, jflat, jstarts, params,
+                                JaxEnumerator(seed_m.scores), seed_m,
+                                ungapped_m, backend="numpy")
+    n = 0
+    for k in keys:
+        g = [(h.target, h.score, h.diagonal) for h in got[k]]
+        assert g == [(h.target, h.score, h.diagonal) for h in want[k]], k
+        n += len(g)
+    assert n > 0
+
+
+# ------------------------------------------------- the wrappers' host logic
+
+def test_match_pairs_chunks_and_emit_splits(monkeypatch):
+    """Target chunks of one tile-row and emit runs of a few hits give the
+    oracle's hit set (chunk and launch bounds never change output)."""
+    params, seed_m, _, _, batch, flat, _, bval = _case(5, mask=True,
+                                                       n_targets=200,
+                                                       n_queries=30)
+    thr = params.kmer_threshold()
+    want = pairs(*pd.match_pairs_numpy(batch, flat, bval, seed_m.scores,
+                                       thr))
+    monkeypatch.setattr(pd, "MAX_TILES", 3)
+    monkeypatch.setattr(pd, "MAX_EMIT_HITS", 5)
+    monkeypatch.setattr(pd, "PLAIN_MAX_ELEMS", 1)
+    got = pairs(*pd.match_pairs(batch, flat, bval, seed_m.scores, thr,
+                                device="cpu"))
+    assert got == want and len(want) > 20
+
+
+def test_plain_emit_places_hits_at_tile_bases():
+    """Each listed tile's hits land at its base, row-major inside it;
+    unlisted tiles contribute nothing; a wrong total raises."""
+    params, seed_m, _, _, batch, flat, _, bval = _case(1, n_targets=120)
+    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores,
+                             params.kmer_threshold(), "cpu")
+    counts = pd.prefilter_dense_counts_plain(*inputs)
+    tiles, base, tc, total = pd.hit_tiles(counts)
+    assert len(tiles) > 2
+    keep = torch.arange(len(tiles)) % 2 == 0
+    tiles, tc = tiles[keep], tc[keep]
+    ends = torch.cumsum(tc, 0)
+    gi, gj = pd.prefilter_dense_emit_plain(*inputs, tiles, ends - tc, tc,
+                                           int(ends[-1]))
+    nqt = inputs[0].shape[0] // pd.TILE_Q
+    tile_of = (gj.long() // pd.TILE_T) * nqt + gi.long() // pd.TILE_Q
+    assert torch.equal(tile_of, torch.repeat_interleave(tiles, tc.long()))
+    with pytest.raises(RuntimeError, match="counts say"):
+        pd.prefilter_dense_emit_plain(*inputs, tiles, ends - tc, tc,
+                                      int(ends[-1]) + 1)
+
+
+def test_invalid_inputs_raise():
+    params, seed_m, _, _, batch, flat, _, bval = _case(0)
+    bad = flat.copy()
+    bad[3] = 21
+    with pytest.raises(ValueError, match="target letters"):
+        pd.match_pairs(batch, bad, bval, seed_m.scores,
+                       params.kmer_threshold(), device="cpu")
+    with pytest.raises(ValueError, match="offsets"):
+        pd.pad_offsets(range(7))
+    assert pd.pad_offsets([0, 2]) == (0, 2, 0, 0, 0, 0)
+
+
+# --------------------------------------------------- the kernels on a card
+
+# name -> (seed, mask, corpus kwargs) of the `cuda` cases (chip_smoke.py
+# phase 4 runs them too); zero_hits is built by cuda_case
+CUDA_CASES = {f"seed{s}_mask{int(m)}": (s, m, {}) for s in (0, 1, 2)
+              for m in (False, True)}
+CUDA_CASES["multichunk"] = (5, True, dict(n_targets=300, n_queries=40))
+CUDA_CASES["zero_hits"] = None
+
+
+def cuda_case(name):
+    """(params, seed matrix, batch, masked flat, boundary validity) of a
+    CUDA_CASES entry. Every case has pad and invalid rows (the zero_hits
+    query is all X)."""
+    if name == "zero_hits":
+        params = PrefilterParams(mask=False)
+        seed_m = load_matrix(params.seed_matrix, 8.0)
+        q_all = [np.full(12, pd.X_IDX, dtype=np.int64)]
+        batch = pd.build_query_batch(q_all, [0], [np.zeros(12)], params)
+        t = np.random.default_rng(9).integers(0, 20, 900).astype(np.uint8)
+        flat, starts = build_masked_flat([t[:400], t[400:]], params)
+        return (params, seed_m, batch, flat,
+                pd.target_boundary_valid(starts, batch.span))
+    seed, mask, kw = CUDA_CASES[name]
+    params, seed_m, _, _, batch, flat, _, bval = _case(seed, mask, **kw)
+    return params, seed_m, batch, flat, bval
+
+
+def match_pairs_small_bounds(batch, flat, bval, scores, kmer_thr):
+    """match_pairs on the card with 3-tile target chunks and emit
+    launches of at most 17 hits, so that it walks several of each: its
+    hit pairs, and the counts and emit launches it made."""
+    saved = pd.MAX_TILES, pd.MAX_EMIT_HITS
+    before = pd.counts_launches, pd.emit_launches
+    pd.MAX_TILES, pd.MAX_EMIT_HITS = 3, 17
+    try:
+        got = pairs(*pd.match_pairs(batch, flat, bval, scores, kmer_thr,
+                                    device="cuda"))
+    finally:
+        pd.MAX_TILES, pd.MAX_EMIT_HITS = saved
+    return got, (pd.counts_launches - before[0],
+                 pd.emit_launches - before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CUDA_CASES))
+def test_cuda_kernels_match_plain(case):
+    """Counts and emitted hits of the kernels equal the plain versions on
+    the same card tensors; match_pairs on the card, walking several
+    target chunks and emit launches, equals the numpy oracle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    params, seed_m, batch, flat, bval = cuda_case(case)
+    thr = params.kmer_threshold()
+    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores, thr, "cuda")
+    before = pd.counts_launches, pd.emit_launches
+    counts = pd.prefilter_dense_counts(*inputs)
+    torch.testing.assert_close(counts, pd.prefilter_dense_counts_plain(
+        *inputs), rtol=0, atol=0)
+    hit = pd.hit_tiles(counts)
+    gi, gj = pd.prefilter_dense_emit(*inputs, *hit)
+    pgi, pgj = pd.prefilter_dense_emit_plain(*inputs, *hit)
+    assert pairs(gi.cpu(), gj.cpu()) == pairs(pgi.cpu(), pgj.cpu())
+    assert (hit[3] == 0) == (case == "zero_hits")
+    assert pd.counts_launches - before[0] == 1
+    assert pd.emit_launches - before[1] == (1 if hit[3] else 0)
+
+    got, _ = match_pairs_small_bounds(batch, flat, bval, seed_m.scores, thr)
+    assert got == pairs(*pd.match_pairs_numpy(batch, flat, bval,
+                                              seed_m.scores, thr))
