@@ -40,6 +40,33 @@ Phase 4  the dense prefilter's kernels (counts and emit): (a) against
          shapes (phase 3's corpus, and its first SMALL_SETS spacer sets
          against the same target), their texts equal, and the gate's
          host-work terms fitted to the two walls' differences.
+Phase 5  the device mesh (--shards) and its dense SW kernels B3 (one
+         query) and B4 (a query batch), csrc/sw_dense.cu: (a) both against
+         their plain versions, exactly, on the `cuda` cases of
+         tests/test_torch_sw_pallas.py; (b) B4 at phase 1's shape, packed
+         as the mesh packs it, exact and timed beside B1, and B3 on one of
+         its queries, timed beside B4 on that one query; (c) the golden DBs
+         through the CLI with --shards 2,4, golden bytes; (d) phase 3's
+         corpus (its own DB copy) through the CLI with --shards 2,4
+         --use-tpu 1 --prefilter-engine host, in this process, whose text
+         must equal the host engine's, with where its time goes and a
+         sample of its largest block held against the plain version; (e)
+         graft_entry.dryrun_multichip(8) on the golden DBs and
+         distributed_search_pipeline over NCCL at world size
+         torch.cuda.device_count() (one process per card), both against
+         the exact host oracle. The kernels' launches are counted over
+         (c) and (d), the slice's main path. B3 has no product caller (nor
+         has its TPU kernel): it is held in (a) and (b) and reports 0
+         launches there.
+
+Each kernel's entry in the report carries its bound: the larger of its
+bytes (every input read once, every output written once) over 3.35 TB/s
+and its operations over the card's rate for their type, both counted for
+what this run's inputs need. The SW kernels count the profile rows within
+each query's length, each target's true letters, the lengths and the
+scores as bytes, and SW_OPS_PER_CELL int32 operations per true DP cell
+over 132 SMs x 64 int32 lanes x clocks.max.sm; B2 counts its product as
+int8 (2 x 128 per cell of the rows that can match) over 1,979 TOP/s.
 
 Every failure exits non-zero. The last two lines of standard output are
 the kernel report and the run's result, one JSON object each.
@@ -65,8 +92,11 @@ KERNELS = {   # library name -> (source, the TPU kernel it replaces)
                     "spacepharer_tpu/ops/sw_packed.py:81"),
     "prefilter_dense": ("spacepharer_tpu_torch/csrc/prefilter_dense.cu",
                         "spacepharer_tpu/ops/prefilter_dense.py:256"),
+    "sw_dense": ("spacepharer_tpu_torch/csrc/sw_dense.cu",
+                 "spacepharer_tpu/ops/sw_pallas.py:124"),
 }
 EMIT_REPLACES = "spacepharer_tpu/ops/prefilter_dense.py:228"
+ONE_QUERY_REPLACES = "spacepharer_tpu/ops/sw_pallas.py:35"
 COPIES = 100          # mutated copies of each golden genome (phase 3)
 SETS = 2000           # random spacer sets added to the golden ones
 SMALL_SETS = 20       # random sets of phase 4(d)'s small query side
@@ -75,6 +105,19 @@ P1_DUP = 20           # phase 1: golden target ORFs repeated this often
 P1_KERNEL_CALLS = 10  # phase 1: calls per timed chain, kernel ...
 P1_PLAIN_CALLS = 2    # ... and plain version
 P4_KERNEL_CALLS = 3   # phase 4(b): calls per timed kernel chain
+P5_KERNEL_CALLS = 5   # phase 5(b): calls per timed kernel chain
+# the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+SMS, INT32_LANES = 132, 64
+# least int32 operations per true SW cell (a DPX add-max or three-way max
+# counts as one): h_pre = addmax(diag, S, E); t = h_pre - go;
+# E' = addmax_relu(E, -ge, t); H = max(h_pre, F); F' = addmax(F, -ge, t);
+# best = max(best, H)
+SW_OPS_PER_CELL = 6
+# kernels whose TPU counterpart no product path calls: held against their
+# plain versions, never launched on the main path
+NO_PRODUCT_CALLER = ("sw_dense_one_query",)
 
 
 def _golden_dir(tmp):
@@ -140,25 +183,56 @@ def _to_device(dev, qpack, tpack):
         tpack["t_len"]))
 
 
-def _chain_ms(fn, args, go, ge, n):
-    """Mean ms of n data-dependent calls (each call's profile depends on
-    the previous call's output), timed with CUDA events and ended by a
-    host fetch of the last output."""
+def _chain_out(fn, args, go, ge, n, warm=True):
+    """(mean ms, last output) of n data-dependent calls (each call's
+    profile depends on the previous call's output), timed with CUDA
+    events and ended by a host fetch of the last output."""
     import torch
     prof, rest = args[0], args[1:]
-    fn(prof, *rest, go, ge)                                 # warm-up
+    if warm:
+        fn(prof, *rest, go, ge)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     p = prof
     start.record()
     for _ in range(n):
         out = fn(p, *rest, go, ge)
-        p = prof + (out[0, 0] & 0)
+        p = prof + (out.reshape(-1)[0] & 0)
     total = out.sum()
     stop.record()
     total.item()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / n
+    return start.elapsed_time(stop) / n, out
+
+
+def _chain_ms(fn, args, go, ge, n):
+    return _chain_out(fn, args, go, ge, n)[0]
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _sw_bytes(q_len, alpha, t_len, letter_bytes):
+    """Bytes an SW kernel must move for these inputs: the int32 profile
+    rows within each query's length (alpha columns each), each target's
+    true letters, both length vectors and the int32 [Q, T] scores."""
+    q_len = np.asarray(q_len).reshape(-1).astype(np.int64)
+    t_len = np.asarray(t_len).reshape(-1).astype(np.int64)
+    return (4 * alpha * int(q_len.sum()) + letter_bytes * int(t_len.sum())
+            + 4 * (q_len.size + t_len.size) + 4 * q_len.size * t_len.size)
+
+
+def _bound(n_bytes, ops, ops_per_s):
+    """(bound ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _sw_bound(n_bytes, cells, clock_hz):
+    return _bound(n_bytes, cells * SW_OPS_PER_CELL,
+                  SMS * INT32_LANES * clock_hz)
 
 
 def phase1(dev, golden):
@@ -217,7 +291,9 @@ def phase1(dev, golden):
           f"{plain_ms} -> {cells / (p_ms * 1e-3):.6g} cells/s")
     torch.cuda.synchronize()
     return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-            "cells": cells}
+            "cells": cells,
+            "bytes": _sw_bytes(np.diff(qo), sw_packed.A_PAD,
+                               np.tile(np.diff(to), P1_DUP), 1)}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -274,8 +350,8 @@ def build_corpus(golden, tmp, seed):
     random sets of 3 spacers (25-45 nt), and a small one of its first
     SMALL_SETS random sets; saved once per run under tmp/<run>/ (a search
     persists its target index or masked target beside the DBs). Returns
-    {run: [query, targets, targets_rev]} for the runs host, gpu, dense
-    and dense_fresh (the whole query side) and host_small and
+    {run: [query, targets, targets_rev]} for the runs host, gpu, dense,
+    dense_fresh and mesh (the whole query side) and host_small and
     dense_small."""
     from spacepharer_tpu_torch.io.setdb import (SetDB, build_setdb_from_fasta,
                                                 build_setdb_from_spacers)
@@ -319,7 +395,8 @@ def build_corpus(golden, tmp, seed):
         [r for r in records if r.file_idx < n_small], names[:n_small])
     paths = {}
     for run, q in (("host", qdb), ("gpu", qdb), ("dense", qdb),
-                   ("dense_fresh", qdb), ("host_small", qsmall),
+                   ("dense_fresh", qdb), ("mesh", qdb),
+                   ("host_small", qsmall),
                    ("dense_small", qsmall)):
         paths[run] = []
         for name, db in (("query", q), ("targets", tdb),
@@ -483,16 +560,19 @@ def _print_gate(paths):
 
 # ---------------------------------------------------------------- phase 4
 
-def _dense_tests():
-    """tests/test_torch_prefilter_dense.py, loaded by path: phase 4 runs
-    its `cuda` cases."""
+def _test_module(name):
+    """tests/<name>.py, loaded by path: phases 4 and 5 run its `cuda`
+    cases."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "test_torch_prefilter_dense",
-        os.path.join(REPO, "tests", "test_torch_prefilter_dense.py"))
+        name, os.path.join(REPO, "tests", name + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _dense_tests():
+    return _test_module("test_torch_prefilter_dense")
 
 
 def _hit_err(a, b, n_pos):
@@ -644,6 +724,19 @@ def phase4_production(dev, p3):
     if c_err or e_err:
         raise AssertionError("phase4 production: kernel != plain")
     del c_plain, e_plain
+    # the bounds' work: the int8 product over the rows that can match
+    # (the kernels skip the rest), over all positions for counts and over
+    # the hit tiles for emit
+    valid = inputs[1] <= pd.N_OFF * 127
+    nqt = c_kernel.shape[-1]
+    per_qt = torch.zeros(nqt, dtype=torch.int64, device=dev).index_add_(
+        0, torch.arange(valid.numel(), device=dev) // pd.TILE_Q,
+        valid.long())
+    in_bytes = _nbytes(*inputs[:4])
+    counts_work = (in_bytes + _nbytes(c_kernel),
+                   int(valid.sum()) * inputs[3].numel() * 2 * pd.KDIM)
+    emit_work = (in_bytes + _nbytes(*hit[:3], *e_kernel),
+                 int(per_qt[hit[0] % nqt].sum()) * pd.TILE_T * 2 * pd.KDIM)
     torch.cuda.synchronize()
 
     # the gate's constants: the whole dense pass at this shape, in cells
@@ -666,7 +759,8 @@ def phase4_production(dev, p3):
           f"{rate:.6g} cells/s ({nk} k-mers x {len(flat)} residues); fixed "
           f"cost of a dense run in a fresh process {fixed:.3f} s")
     return {"counts": (c_err, k_ms, p_ms), "emit": (e_err, e_k_ms, e_p_ms),
-            "fixed_s": fixed, "cells_per_s": rate}
+            "fixed_s": fixed, "cells_per_s": rate,
+            "work": {"counts": counts_work, "emit": emit_work}}
 
 
 def fixed_cost_probe():
@@ -784,6 +878,342 @@ def phase4_routes(p3, p4):
           f"per query k-mer, {per_res:.6g} s per target residue")
 
 
+# ---------------------------------------------------------------- phase 5
+
+def _dev_args(dev, *arrays):
+    import torch
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in arrays)
+
+
+def phase5_cases(dev):
+    """(a): B4 on every `cuda` case of tests/test_torch_sw_pallas.py, and
+    B3 on each of its first queries, against their plain versions on the
+    card. Returns the max errors (B3, B4)."""
+    from spacepharer_tpu_torch.ops import sw_pallas as sp
+    tests = _test_module("test_torch_sw_pallas")
+    errs = [0, 0]
+    for name in tests.CUDA_CASES:
+        prof, q_len, t_seqs, t_len, go, ge = tests.cuda_case(name)
+        args = _dev_args(dev, prof, q_len, t_seqs, t_len)
+        b4 = int((sp.sw_scores_batch(*args, go, ge)
+                  - sp.sw_scores_batch_plain(*args, go, ge)).abs().max())
+        b3 = 0
+        for qi in range(min(6, prof.shape[0])):
+            one = (args[0][qi], args[1][qi]) + args[2:]
+            b3 = max(b3, int((sp.sw_scores_one_query(*one, go, ge)
+                              - sp.sw_scores_one_query_plain(*one, go, ge)
+                              ).abs().max()))
+        print(f"phase5 {name}: {prof.shape[0]}x{t_seqs.shape[1]} (LQ "
+              f"{prof.shape[1]}, LT {t_seqs.shape[0]}, A {prof.shape[2]}): "
+              f"max|B4-plain| = {b4}, max|B3-plain| = {b3}")
+        if b3 or b4:
+            raise AssertionError(f"phase5 {name}: kernel != plain")
+        errs = [max(errs[0], b3), max(errs[1], b4)]
+    return errs
+
+
+def phase5_production(dev, golden, p1, clock_hz):
+    """(b): B4 at phase 1's shape (golden query ORFs x golden target ORFs
+    x P1_DUP, with bias), packed as the mesh packs it, exact against its
+    plain version and timed in turns kernel, plain, kernel; then B3 on
+    the longest of those queries against all the targets, timed beside B4
+    on that one query."""
+    from spacepharer_tpu_torch.io.setdb import SetDB
+    from spacepharer_tpu_torch.ops import sw_pallas as sp
+    from spacepharer_tpu_torch.ops.align import sw_bias_i8
+    from spacepharer_tpu_torch.ops.matrices import load_matrix
+    from spacepharer_tpu_torch.parallel import sharding
+
+    m = load_matrix("VTML40.out", 2.0)
+    qdb = SetDB.load(_golden_query_path(golden))
+    tdb = SetDB.load(os.path.join(golden, "targets"))
+    qf, qo = qdb.orf_aa_encoded()
+    tf, to = tdb.orf_aa_encoded()
+    qs = [qf[qo[i]:qo[i + 1]] for i in range(qdb.n_orfs)]
+    ts = [tf[to[i]:to[i + 1]] for i in range(tdb.n_orfs)] * P1_DUP
+    t0 = time.perf_counter()
+    q_prof, q_len = sharding.pack_queries(
+        qs, m.scores, max(8, -(-max(map(len, qs)) // 8) * 8),
+        bias_list=[sw_bias_i8(q, m) for q in qs])
+    t_seqs, t_len = sharding.pack_targets(
+        ts, max(8, -(-max(map(len, ts)) // 8) * 8), x_index=20)
+    pack_s = time.perf_counter() - t0
+    args = _dev_args(dev, q_prof, q_len, t_seqs.T, t_len)
+    cells = int(q_len.sum()) * int(t_len.sum())
+    k_ms = [_chain_out(sp.sw_scores_batch, args, 16, 2,
+                       P5_KERNEL_CALLS)[0]]
+    p_ms, ref = _chain_out(sp.sw_scores_batch_plain, args, 16, 2, 1,
+                           warm=False)
+    k2, out = _chain_out(sp.sw_scores_batch, args, 16, 2, P5_KERNEL_CALLS)
+    k_ms.append(k2)
+    err = int((out - ref).abs().max())
+    del ref
+    print(f"phase5 production B4: {q_prof.shape[0]}x{t_seqs.shape[0]} "
+          f"(LQ {q_prof.shape[1]}, LT {t_seqs.shape[1]}), {cells} true "
+          f"cells per call, host packing {pack_s:.3f} s; kernel ms {k_ms} "
+          f"-> {cells / (min(k_ms) * 1e-3):.6g} cells/s; plain {p_ms} ms "
+          f"-> {cells / (p_ms * 1e-3):.6g} cells/s; B1 on the same pairs "
+          f"{p1['ms']} ms -> {p1['cells'] / (p1['ms'] * 1e-3):.6g} cells/s;"
+          f" max|kernel-plain| = {err}")
+    if err:
+        raise AssertionError("phase5 production: B4 != plain")
+    qi = int(np.argmax(q_len))
+    one = (args[0][qi], args[1][qi:qi + 1]) + args[2:]
+    cells3 = int(q_len[qi]) * int(t_len.sum())
+    one4 = (args[0][qi:qi + 1], args[1][qi:qi + 1]) + args[2:]
+    # turns: B3, B4 at Q = 1, B4 at Q = 1, B3
+    k3, out3 = _chain_out(sp.sw_scores_one_query, one, 16, 2,
+                          P5_KERNEL_CALLS)
+    k4one = [_chain_out(sp.sw_scores_batch, one4, 16, 2, P5_KERNEL_CALLS)
+             for _ in range(2)]
+    k3 = [k3, _chain_out(sp.sw_scores_one_query, one, 16, 2,
+                         P5_KERNEL_CALLS)[0]]
+    p3, ref3 = _chain_out(sp.sw_scores_one_query_plain, one, 16, 2, 1,
+                          warm=False)
+    err3 = max([int((out3 - ref3).abs().max())]
+               + [int((o[0] - ref3).abs().max()) for _, o in k4one])
+    k4one = [ms for ms, _ in k4one]
+    print(f"phase5 production B3: query {qi} ({int(q_len[qi])} rows) x "
+          f"{t_seqs.shape[0]} targets, {cells3} true cells; kernel ms {k3} "
+          f"-> {cells3 / (min(k3) * 1e-3):.6g} cells/s; B4 on the same one "
+          f"query ms {k4one}; plain {p3} ms; max|kernel-plain| = {err3}")
+    k3 = min(k3)
+    if err3:
+        raise AssertionError("phase5 production: B3 (or B4 at Q = 1) != "
+                             "plain")
+    b4_bound = _sw_bound(_sw_bytes(q_len, q_prof.shape[2], t_len, 4), cells,
+                         clock_hz)
+    b3_bound = _sw_bound(_sw_bytes(q_len[qi:qi + 1], q_prof.shape[2], t_len,
+                                   4), cells3, clock_hz)
+    return {"b4": (err, min(k_ms), p_ms, b4_bound),
+            "b3": (err3, k3, p3, b3_bound)}
+
+
+def phase5_golden(golden, tmp):
+    """(c): the golden DBs through the CLI with --shards 2,4 (B4 per
+    shard); the golden bytes."""
+    from spacepharer_tpu_torch.ops import sw_pallas as sp
+    qpath = _golden_query_path(golden)
+    with open(os.path.join(golden, "result.tsv")) as gh:
+        want = gh.read()
+    base = os.path.join(tmp, "p5", "2x4")
+    os.makedirs(base)
+    before = sp.batch_launches
+    t0 = time.perf_counter()
+    rc = _cli(["predictmatch", qpath, os.path.join(golden, "targets"),
+               os.path.join(golden, "targets_rev"),
+               os.path.join(base, "result.tsv"), os.path.join(base, "tmp"),
+               "--shards", "2,4", "--use-tpu", "1", "-v", "1"])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"phase5 --shards 2,4: exited {rc}")
+    with open(os.path.join(base, "result.tsv")) as fh:
+        same = fh.read() == want
+    n = sp.batch_launches - before
+    print(f"phase5 golden via CLI --shards 2,4 --use-tpu 1: "
+          f"byte-identical={same}, batch_launches {n}, wall {wall:.3f} s")
+    if not same:
+        raise AssertionError("phase5 --shards 2,4: result.tsv differs from "
+                             "the golden")
+    if n <= 0:
+        raise AssertionError("phase5 --shards 2,4: B4 was never launched")
+
+
+def _check_mesh_block(dev, block, seed):
+    """Hold CHECK_ROWS random query rows of the largest block the mesh
+    scored in (d) against sw_scores_batch_plain on the card. Returns
+    max |kernel - plain|."""
+    from spacepharer_tpu_torch.ops import sw_pallas as sp
+    from spacepharer_tpu_torch.parallel import sharding
+    q_list, t_list, kernel_out = block["q"], block["t"], block["out"]
+    rng = np.random.default_rng(seed)
+    rows = np.sort(rng.choice(len(q_list), min(CHECK_ROWS, len(q_list)),
+                              replace=False))
+    bias = block["bias"]
+    q_prof, q_len = sharding.pack_queries(
+        [q_list[i] for i in rows], block["matrix"],
+        max(8, -(-max(len(q_list[i]) for i in rows) // 8) * 8),
+        bias_list=None if bias is None else [bias[i] for i in rows])
+    t_seqs, t_len = sharding.pack_targets(
+        t_list, max(8, -(-max(map(len, t_list)) // 8) * 8), x_index=20)
+    t0 = time.perf_counter()
+    plain = sp.sw_scores_batch_plain(
+        *_dev_args(dev, q_prof, q_len, t_seqs.T, t_len), block["go"],
+        block["ge"]).cpu().numpy()
+    plain_s = time.perf_counter() - t0
+    err = int(np.abs(kernel_out[rows].astype(np.int64) - plain).max())
+    print(f"phase5 largest block {kernel_out.shape[0]}x"
+          f"{kernel_out.shape[1]}: {len(rows)} query rows x all "
+          f"{len(t_list)} targets, max|kernel-plain| = {err} (plain on "
+          f"the card {plain_s:.3f} s)")
+    if err:
+        raise AssertionError("phase5: mesh scores != plain on the largest "
+                             "block")
+    return err
+
+
+def phase5_corpus(dev, p3, tmp, seed):
+    """(d): phase 3's corpus through the CLI with --shards 2,4 --use-tpu 1
+    --prefilter-engine host in this process: its text must equal the
+    host engine's. Times packing, shard scoring and the whole mesh
+    scoring inside _search_tpu; the rest of _search_tpu is bias and
+    survivor realignment. CUDA is initialised, so both searches run here
+    one after the other, as in phase 3's GPU run."""
+    import torch
+    from spacepharer_tpu_torch.logging import timings
+    from spacepharer_tpu_torch.ops import sw_pallas as sp
+    from spacepharer_tpu_torch.parallel import sharding
+    from spacepharer_tpu_torch.pipeline import predictmatch as pm
+
+    spent = dict.fromkeys(("pack", "score", "mesh", "search_tpu"), 0.0)
+    largest = {"out": np.zeros((0, 0), dtype=np.int32)}
+    names = ("pack_queries", "pack_targets", "sw_scores_batch",
+             "sharded_allpairs_scores")
+    orig = {name: getattr(sharding, name) for name in names}
+    search_tpu = pm._search_tpu
+
+    def timed(key, fn, sync=False):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t
+            return out
+        return run
+
+    def kept(mesh, q_list, t_list, matrix_scores, bias_list=None,
+             gap_open=16, gap_extend=2):
+        out = orig["sharded_allpairs_scores"](
+            mesh, q_list, t_list, matrix_scores, bias_list, gap_open,
+            gap_extend)
+        if out.size > largest["out"].size:
+            largest.update(q=q_list, t=t_list, matrix=matrix_scores,
+                           bias=bias_list, go=gap_open, ge=gap_extend,
+                           out=out)
+        return out
+
+    sharding.pack_queries = timed("pack", orig["pack_queries"])
+    sharding.pack_targets = timed("pack", orig["pack_targets"])
+    sharding.sw_scores_batch = timed("score", orig["sw_scores_batch"],
+                                     sync=True)
+    sharding.sharded_allpairs_scores = timed("mesh", kept)
+    pm._search_tpu = timed("search_tpu", search_tpu)
+    out = os.path.join(p3["base"], "mesh.tsv")
+    before = timings()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = _cli(["predictmatch", *p3["paths"]["mesh"], out,
+                       os.path.join(p3["base"], "tmp_mesh"), "--shards",
+                       "2,4", "--use-tpu", "1", "--prefilter-engine", "host",
+                       "-v", "1"])
+    finally:
+        for name in names:
+            setattr(sharding, name, orig[name])
+        pm._search_tpu = search_tpu
+    wall = time.perf_counter() - t0
+    after = timings()
+    if rc != 0:
+        raise AssertionError(f"phase5 mesh predictmatch exited {rc}")
+    with open(out) as fh:
+        same = fh.read() == p3["host_text"]
+    print(f"phase5 corpus via CLI --shards 2,4 --use-tpu 1 "
+          f"--prefilter-engine host in this process: wall {wall:.3f} s "
+          f"(phase 3's GPU engine {p3['gpu_wall']:.3f} s; search "
+          f"{after.get('search', 0) - before.get('search', 0):.3f} s, "
+          f"search_rev "
+          f"{after.get('search_rev', 0) - before.get('search_rev', 0):.3f}"
+          f" s); _search_tpu {spent['search_tpu']:.3f} s: mesh scoring "
+          f"{spent['mesh']:.3f} s (host packing {spent['pack']:.3f} s, "
+          f"B4 launches to a synchronise "
+          f"{spent['score']:.3f} s, the rest uploads, one transpose per "
+          f"target block, downloads and padding), bias + survivor realignment + the rest "
+          f"{spent['search_tpu'] - spent['mesh']:.3f} s; over (c) and "
+          f"(d): B4 launches {sp.batch_launches}, B3 launches "
+          f"{sp.one_query_launches}, true cells {sp.cells}; text "
+          f"identical to the host engine's: {same}")
+    if not same:
+        raise AssertionError("phase5: mesh text differs from the host "
+                             "engine's")
+    return _check_mesh_block(dev, largest, seed)
+
+
+def nccl_rank(rank, world, init, inputs, out):
+    """One rank of phase 5(e)'s NCCL run: its target shard of `inputs`
+    through distributed_search_pipeline on a (1, world) mesh."""
+    import torch.distributed as dist
+    from spacepharer_tpu_torch.parallel.distributed import (
+        distributed_search_pipeline, initialize)
+    initialize(init_method=init, world_size=world, rank=rank,
+               timeout_s=120)           # NCCL: the script needs CUDA
+    d = np.load(inputs)
+    tl = len(d["t_seqs"]) // world
+    ts = slice(rank * tl, (rank + 1) * tl)
+    step = distributed_search_pipeline(1, world, top_k=int(d["top_k"]),
+                                       n_sets=int(d["n_sets"]),
+                                       n_qsets=int(d["n_qsets"]))
+    got = step(d["q_prof"], d["q_len"], d["t_seqs"][ts], d["t_len"][ts],
+               d["set_of_t"][ts], d["set_of_q"])
+    dist.destroy_process_group()
+    np.savez(out, **dict(zip(("sc", "idx", "best", "comb"), got)))
+
+
+def phase5_entry_points(golden, tmp):
+    """(e): graft_entry.dryrun_multichip(8) on the golden DBs (all 8
+    shards on the card), and distributed_search_pipeline over NCCL at
+    world size torch.cuda.device_count(), one process per card, on the
+    same corpus slice; both against the exact host oracle."""
+    import torch
+    from spacepharer_tpu_torch import graft_entry
+    qpath = _golden_query_path(golden)
+    tpath = os.path.join(golden, "targets")
+    t0 = time.perf_counter()
+    shapes = graft_entry.dryrun_multichip(8, qpath, tpath)
+    print(f"phase5 dryrun_multichip(8) on the golden DBs: meshes {shapes} "
+          f"match the host oracle ({time.perf_counter() - t0:.3f} s)")
+
+    world = torch.cuda.device_count()
+    base = os.path.join(tmp, "p5", "nccl")
+    os.makedirs(base)
+    qs, ts, set_of_t, n_sets = graft_entry.golden_slice(8, qpath, tpath)
+    inp = graft_entry.mesh_inputs(qs, ts, set_of_t, 1, world)
+    np.savez(os.path.join(base, "inputs.npz"), top_k=4, n_sets=n_sets,
+             **{k: inp[k] for k in ("q_prof", "q_len", "t_seqs", "t_len",
+                                    "set_of_t", "set_of_q", "n_qsets")})
+    init = "file://" + os.path.join(base, "rendezvous")
+    env = dict(os.environ, NCCL_SOCKET_IFNAME="lo", GLOO_SOCKET_IFNAME="lo")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.nccl_rank({r}, {world}, {init!r}, "
+         f"{os.path.join(base, 'inputs.npz')!r}, "
+         f"{os.path.join(base, f'out{r}.npz')!r})"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(world)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append((p.communicate(timeout=300)[1], p.returncode))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (err, rc) in enumerate(errs):
+        if rc != 0:
+            raise AssertionError(f"phase5 NCCL rank {r} exited {rc}:\n"
+                                 f"{err[-4000:]}")
+    d = np.load(os.path.join(base, "out0.npz"))
+    graft_entry.check_mesh_result(
+        inp, n_sets, (d["sc"], d["idx"], d["best"], d["comb"]), 4,
+        label=("nccl", world))
+    print(f"phase5 distributed_search_pipeline over NCCL, world size "
+          f"{world}, mesh (1, {world}): matches the host oracle "
+          f"({time.perf_counter() - t0:.3f} s, processes included)")
+
+
 def _build_all():
     """Build every kernel library at once (one nvcc each) and print each
     one's ptxas registers and spills."""
@@ -821,10 +1251,16 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     kind = torch.cuda.get_device_name(0)
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
     print(f"phase0 torch {torch.__version__} CUDA {torch.version.cuda}, "
-          f"{torch.cuda.device_count()} device(s)")
+          f"{torch.cuda.device_count()} device(s), clocks.max.sm "
+          f"{clock_hz / 1e6:.0f} MHz")
     _build_all()
 
+    from spacepharer_tpu_torch.ops import sw_pallas
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         golden = _golden_dir(tmp)
@@ -835,21 +1271,52 @@ def main():
         p4 = phase4_production(dev, p3)
         p4_launches = phase4_predictmatch(p3, tmp)
         phase4_routes(p3, p4)
+        p5_errs = phase5_cases(dev)
+        p5 = phase5_production(dev, golden, p1, clock_hz)
+        # the slice's main path: the mesh route through the CLI
+        sw_pallas.batch_launches = sw_pallas.one_query_launches = 0
+        sw_pallas.cells = 0
+        phase5_golden(golden, tmp)
+        p5_block_err = phase5_corpus(dev, p3, tmp, args.seed)
+        p5_launches = {"sw_dense_one_query": sw_pallas.one_query_launches,
+                       "sw_dense_batch": sw_pallas.batch_launches}
+        phase5_entry_points(golden, tmp)
     print(smi)
     sw_src, sw_replaces = KERNELS["sw_allpairs"]
     pd_src, pd_replaces = KERNELS["prefilter_dense"]
+    sd_src, sd_replaces = KERNELS["sw_dense"]
+    bound, bound_by = _sw_bound(p1["bytes"], p1["cells"], clock_hz)
     report = [{"name": "sw_allpairs", "route": "cuda", "source": sw_src,
                "replaces": sw_replaces, "launches": p3["launches"],
                "max_abs_err": max(p1["max_abs_err"], p3["max_abs_err"]),
-               "ms": p1["ms"], "plain_ms": p1["plain_ms"]}]
+               "ms": p1["ms"], "plain_ms": p1["plain_ms"],
+               "bound_ms": bound, "bound_by": bound_by, "library_ms": None}]
     for i, (name, replaces) in enumerate((
             ("prefilter_dense_counts", pd_replaces),
             ("prefilter_dense_emit", EMIT_REPLACES))):
-        err, ms, plain_ms = p4[name.rsplit("_", 1)[1]]
+        part = name.rsplit("_", 1)[1]
+        err, ms, plain_ms = p4[part]
+        bound, bound_by = _bound(*p4["work"][part], INT8_OPS_PER_S)
         report.append({"name": name, "route": "cuda", "source": pd_src,
                        "replaces": replaces, "launches": p4_launches[name],
                        "max_abs_err": max(case_errs[i], err), "ms": ms,
-                       "plain_ms": plain_ms})
+                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by, "library_ms": None})
+    for name, replaces, key, case_err, extra_err in (
+            ("sw_dense_one_query", ONE_QUERY_REPLACES, "b3", p5_errs[0], 0),
+            ("sw_dense_batch", sd_replaces, "b4", p5_errs[1],
+             p5_block_err)):
+        err, ms, plain_ms, (bound, bound_by) = p5[key]
+        report.append({"name": name, "route": "cuda", "source": sd_src,
+                       "replaces": replaces, "launches": p5_launches[name],
+                       "max_abs_err": max(case_err, err, extra_err),
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by, "library_ms": None})
+    missing = [k["name"] for k in report if k["launches"] <= 0
+               and k["name"] not in NO_PRODUCT_CALLER]
+    if missing:
+        raise AssertionError(f"kernels never launched on their main path: "
+                             f"{missing}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -48,7 +48,9 @@ class PredictParams:
     # CPU when no GPU is attached)
     use_tpu: Optional[bool] = None
     # (q_shards, t_shards) device mesh for the scoring step; None =
-    # single device. Not ported yet (torch.distributed, ROADMAP A8).
+    # single device. Shards sit on the CUDA devices, several on one card
+    # when there are fewer cards than shards, or on the CPU without one
+    # (parallel/sharding.py).
     mesh: Optional[tuple] = None
     # torch.profiler trace output dir (SURVEY 5.1: the device-side
     # observability analog of the reference's prefilter statistics);
@@ -144,10 +146,6 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
     STEPS=1, which keeps the byte-parity path untouched."""
     from dataclasses import replace
     from ..ops.prefilter import SimilarKmerEnumerator
-
-    if params.mesh is not None:
-        raise NotImplementedError(
-            "the device mesh (--shards) is not ported yet, see ROADMAP")
 
     if params.prefilter.sens_steps > 1 and keys is None:
         senses = np.linspace(params.prefilter.start_sens,
@@ -646,6 +644,11 @@ def _search_tpu(keys, t_aa, cand, q_all, m40, evaluer, params):
             cur, cur_union = [], set()
     if cur:
         blocks.append(cur)
+    mesh = None
+    if params.mesh is not None:
+        from ..parallel.sharding import make_mesh
+        # on the CUDA devices when a GPU is present, else on the CPU
+        mesh = make_mesh(*params.mesh)
     on_gpu = _accelerator_present()
     for block in blocks:
         union = sorted({t for k in block for t in cand[k]})
@@ -654,7 +657,15 @@ def _search_tpu(keys, t_aa, cand, q_all, m40, evaluer, params):
             for k in block:
                 cand_scores[k] = np.zeros(0, dtype=np.int64)
             continue
-        if on_gpu:
+        if mesh is not None:
+            # kernel B4 per shard; scores come back as numpy
+            from ..parallel.sharding import sharded_allpairs_scores
+            scores = sharded_allpairs_scores(
+                mesh, [q_all[k] for k in block], [t_aa[t] for t in union],
+                m40.scores, bias_list=[biases[k] for k in block],
+                gap_open=params.align.gap_open,
+                gap_extend=params.align.gap_extend)
+        elif on_gpu:
             # scores come back as numpy: forked realign workers below
             # must never touch CUDA state
             from ..ops.sw_packed import device_allpairs_scores

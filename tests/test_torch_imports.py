@@ -22,6 +22,10 @@ def test_port_imports_no_jax():
         "import spacepharer_tpu_torch.ops.sw_packed\n"
         "import spacepharer_tpu_torch.ops.sw_tpu\n"
         "import spacepharer_tpu_torch.ops.prefilter_dense\n"
+        "import spacepharer_tpu_torch.ops.sw_pallas\n"
+        "import spacepharer_tpu_torch.parallel.sharding\n"
+        "import spacepharer_tpu_torch.parallel.distributed\n"
+        "import spacepharer_tpu_torch.graft_entry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'spacepharer_tpu'))\n"
         "assert 'torch' in sys.modules\n"

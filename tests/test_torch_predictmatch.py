@@ -81,13 +81,43 @@ def test_golden_cli_predictmatch_use_tpu_traced(golden_dbs, golden,
     assert (trace_dir / "search.trace.json").stat().st_size > 0
 
 
-@pytest.mark.parametrize("params", [
-    pm.PredictParams(mesh=(1, 2)),
-], ids=["mesh"])
-def test_unported_engines_raise(golden_dbs, params):
-    (qdb, tdb, cdb), _ = golden_dbs
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pm.predict_match(qdb, tdb, cdb, params)
+@pytest.mark.parametrize("mesh", [(1, 8), (2, 4), (4, 2)])
+def test_golden_mesh_byte_identical(golden_dbs, mesh, monkeypatch):
+    """The device mesh (--shards): every shard on the CPU, scored by the
+    dense kernels' plain versions."""
+    from spacepharer_tpu_torch.parallel import sharding
+    (qdb, tdb, cdb), text = golden_dbs
+    shapes = []
+    orig = sharding.sharded_allpairs_scores
+    monkeypatch.setattr(sharding, "sharded_allpairs_scores",
+                        lambda m, *a, **kw: shapes.append(m.shape)
+                        or orig(m, *a, **kw))
+    res = pm.predict_match(qdb, tdb, cdb, pm.PredictParams(mesh=mesh))
+    assert res.text == text
+    assert shapes == [mesh, mesh]          # forward and control searches
+
+
+def test_golden_mesh_matches_jax_package(golden_dbs, golden):
+    (qdb, tdb, cdb), text = golden_dbs
+    jax_dbs = [JaxSetDB.load(p) for p in _golden_paths(golden)]
+    ref = jax_pm.predict_match(*jax_dbs, jax_pm.PredictParams(mesh=(2, 4)))
+    got = pm.predict_match(qdb, tdb, cdb, pm.PredictParams(mesh=(2, 4)))
+    assert got.text == ref.text == text
+    assert got.match == ref.match
+    assert got.cscore == ref.cscore and got.cscore_rev == ref.cscore_rev
+
+
+def test_golden_cli_shards(golden, tmp_path):
+    """The CLI's --shards 2,4 with --use-tpu 1: golden bytes."""
+    from spacepharer_tpu_torch import cli
+    with open(os.path.join(golden, "result.tsv")) as fh:
+        text = fh.read()
+    out = tmp_path / "result.tsv"
+    rc = cli.main(["predictmatch", *_golden_paths(golden), str(out),
+                   str(tmp_path / "tmp"), "--shards", "2,4", "--use-tpu",
+                   "1", "-v", "1"])
+    assert rc == 0
+    assert out.read_text() == text
 
 
 def test_golden_dense_prefilter_byte_identical(golden_dbs, monkeypatch):
