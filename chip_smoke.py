@@ -4,13 +4,17 @@
     python3 chip_smoke.py [--seed 0]
 
 Phase 0  requires CUDA, prints the card (nvidia-smi) and builds the
-         hand-written kernels (csrc/sw_allpairs.cu and
-         csrc/prefilter_dense.cu, one nvcc each, in parallel, sm_90a),
-         printing each one's registers and spills.
+         hand-written kernels (csrc/sw_allpairs.cu, csrc/prefilter_dense.cu
+         and csrc/sw_dense.cu, one nvcc each, in parallel, sm_90a),
+         printing each one's registers and spills, and counts in the
+         SASS of the built libraries (cuobjdump -sass) the DPX min/max
+         opcodes of sw_dense and the integer MMA opcodes of
+         prefilter_dense.
 Phase 1  holds the SW kernel against its plain PyTorch version on the
          card, exactly, on the test corpora and on a production-shaped
          workload (the golden bundle's 305 query ORFs x 691 target ORFs,
-         targets x20), and times both (true DP cells per second).
+         targets x20), and times both (true DP cells per second): the
+         kernel alone and the wrapper's chain.
 Phase 2  runs the golden bundle's DBs through the CLI `predictmatch`
          with --use-tpu 1 and requires the golden result.tsv, byte for
          byte, with the kernel launched.
@@ -29,7 +33,10 @@ Phase 4  the dense prefilter's kernels (counts and emit): (a) against
          tests/test_torch_prefilter_dense.py, and match_pairs with small
          chunk and emit bounds against the numpy oracle; (b) at the
          production shape (phase 3's query k-mer rows x its whole masked
-         target), exact and timed, with two of the auto gate's constants
+         target), exact and timed (each kernel alone, the counts on
+         its compacted rows; the counts' wrapper with the compaction and
+         the emit's with its check), with two
+         of the auto gate's constants
          (the whole dense pass's cells per second, and the fixed cost of
          a dense run in a fresh process); (c) `predictmatch` through the
          CLI on phase 3's corpus (its own DB copy) with
@@ -43,9 +50,11 @@ Phase 4  the dense prefilter's kernels (counts and emit): (a) against
 Phase 5  the device mesh (--shards) and its dense SW kernels B3 (one
          query) and B4 (a query batch), csrc/sw_dense.cu: (a) both against
          their plain versions, exactly, on the `cuda` cases of
-         tests/test_torch_sw_pallas.py; (b) B4 at phase 1's shape, packed
-         as the mesh packs it, exact and timed beside B1, and B3 on one of
-         its queries, timed beside B4 on that one query; (c) the golden DBs
+         tests/test_torch_sw_pallas.py; (b) B4 at phase 1's shape, exact
+         and timed beside B1: the kernel alone (CUDA events around its
+         launches, as every kernel's time in the report), the target
+         packing apart, and the wrapper with the packing; and B3 on one of its queries, timed
+         beside B4 on that one query; (c) the golden DBs
          through the CLI with --shards 2,4, golden bytes; (d) phase 3's
          corpus (its own DB copy) through the CLI with --shards 2,4
          --use-tpu 1 --prefilter-engine host, in this process, whose text
@@ -72,12 +81,15 @@ Every failure exits non-zero. The last two lines of standard output are
 the kernel report and the run's result, one JSON object each.
 """
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import glob
 import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tarfile
@@ -106,6 +118,11 @@ P1_KERNEL_CALLS = 10  # phase 1: calls per timed chain, kernel ...
 P1_PLAIN_CALLS = 2    # ... and plain version
 P4_KERNEL_CALLS = 3   # phase 4(b): calls per timed kernel chain
 P5_KERNEL_CALLS = 5   # phase 5(b): calls per timed kernel chain
+# SASS opcodes counted in phase 0: the min/max family of sw_dense (its DPX
+# add-max and three-way max among them) and the integer MMA of
+# prefilter_dense
+SASS_COUNTED = {"sw_dense": re.compile(r"MNMX"),
+                "prefilter_dense": re.compile(r"^IMMA|^LDSM")}
 # the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
@@ -278,20 +295,26 @@ def phase1(dev, golden):
     if err:
         raise AssertionError("phase1 production: kernel != plain")
     cells = int(np.diff(qo).sum()) * int(np.diff(to).sum()) * P1_DUP
-    # turns: plain, kernel, kernel, plain
+    # turns: plain, kernel, kernel, plain; the kernel alone (CUDA events
+    # around its launches) and the wrapper's chain each time
     plain_ms = [_chain_ms(sw_packed.sw_allpairs_plain, args, 16, 2,
                           P1_PLAIN_CALLS)]
-    kernel_ms = [_chain_ms(sw_packed.sw_allpairs, args, 16, 2,
-                           P1_KERNEL_CALLS) for _ in range(2)]
+    kernel_ms, chain_ms = [], []
+    for _ in range(2):
+        kernel_ms.append(_kernel_ms(sw_packed, sw_packed.sw_allpairs,
+                                    args + (16, 2), P1_KERNEL_CALLS)[0])
+        chain_ms.append(_chain_ms(sw_packed.sw_allpairs, args, 16, 2,
+                                  P1_KERNEL_CALLS))
     plain_ms.append(_chain_ms(sw_packed.sw_allpairs_plain, args, 16, 2,
                               P1_PLAIN_CALLS))
     k_ms, p_ms = min(kernel_ms), min(plain_ms)
-    print(f"phase1 timing: {cells} true cells per call; kernel ms "
-          f"{kernel_ms} -> {cells / (k_ms * 1e-3):.6g} cells/s; plain ms "
-          f"{plain_ms} -> {cells / (p_ms * 1e-3):.6g} cells/s")
+    print(f"phase1 timing: {cells} true cells per call; kernel alone ms "
+          f"{kernel_ms} -> {cells / (k_ms * 1e-3):.6g} cells/s; wrapper "
+          f"chain ms {chain_ms}; plain ms {plain_ms} -> "
+          f"{cells / (p_ms * 1e-3):.6g} cells/s")
     torch.cuda.synchronize()
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-            "cells": cells,
+    return {"max_abs_err": max_err, "ms": k_ms, "chain_ms": min(chain_ms),
+            "plain_ms": p_ms, "cells": cells,
             "bytes": _sw_bytes(np.diff(qo), sw_packed.A_PAD,
                                np.tile(np.diff(to), P1_DUP), 1)}
 
@@ -705,25 +728,37 @@ def phase4_production(dev, p3):
           f"k-mer rows ({int(batch.kmer_valid.sum())} valid) x {len(flat)} "
           f"target residues = {cells} dense cells")
 
-    k_ms, c_kernel = _chain(pd.prefilter_dense_counts, inputs, (),
-                            P4_KERNEL_CALLS)
+    w_ms, c_wrapped = _chain(pd.prefilter_dense_counts, inputs, (),
+                             P4_KERNEL_CALLS)
+    t0 = time.perf_counter()
+    compacted = pd.compact_rows(inputs[0], inputs[1])
+    torch.cuda.synchronize()
+    compact_ms = (time.perf_counter() - t0) * 1e3
+    k_ms, c_kernel = _kernel_ms(pd, pd.prefilter_dense_counts,
+                                inputs + (compacted,), P4_KERNEL_CALLS)
     p_ms, c_plain = _chain(pd.prefilter_dense_counts_plain, inputs, (), 1)
-    c_err = int((c_kernel - c_plain).abs().max())
+    c_err = max(int((c_kernel - c_plain).abs().max()),
+                int((c_wrapped - c_plain).abs().max()))
     hit = pd.hit_tiles(c_kernel)
-    e_k_ms, e_kernel = _chain(pd.prefilter_dense_emit, inputs, hit,
-                              P4_KERNEL_CALLS)
+    e_k_ms, e_kernel = _kernel_ms(pd, pd.prefilter_dense_emit,
+                                  inputs + tuple(hit), P4_KERNEL_CALLS)
+    e_w_ms, _ = _chain(pd.prefilter_dense_emit, inputs, hit,
+                       P4_KERNEL_CALLS)
     e_p_ms, e_plain = _chain(pd.prefilter_dense_emit_plain, inputs, hit, 1)
     e_err = _hit_err(e_kernel, e_plain, inputs[3].numel())
-    print(f"phase4 production counts: kernel {k_ms} ms -> "
-          f"{cells / (k_ms * 1e-3):.6g} cells/s; plain {p_ms} ms -> "
+    print(f"phase4 production counts: {compacted[0].shape[0]} compacted "
+          f"rows; kernel alone {k_ms} ms -> {cells / (k_ms * 1e-3):.6g} "
+          f"cells/s; wrapper with the row compaction {w_ms} ms (one "
+          f"compaction {compact_ms:.3f} ms); plain {p_ms} ms -> "
           f"{cells / (p_ms * 1e-3):.6g} cells/s; max|kernel-plain| = "
           f"{c_err}")
     print(f"phase4 production emit: {hit[3]} hits in {hit[0].numel()} of "
-          f"{c_kernel.numel()} tiles; kernel {e_k_ms} ms; plain {e_p_ms} "
+          f"{c_kernel.numel()} tiles; kernel alone {e_k_ms} ms; wrapper "
+          f"with its check {e_w_ms} ms; plain {e_p_ms} "
           f"ms; emitted vs plain max err {e_err}")
     if c_err or e_err:
         raise AssertionError("phase4 production: kernel != plain")
-    del c_plain, e_plain
+    del c_plain, e_plain, c_wrapped, compacted
     # the bounds' work: the int8 product over the rows that can match
     # (the kernels skip the rest), over all positions for counts and over
     # the hit tiles for emit
@@ -915,10 +950,13 @@ def phase5_cases(dev):
 
 def phase5_production(dev, golden, p1, clock_hz):
     """(b): B4 at phase 1's shape (golden query ORFs x golden target ORFs
-    x P1_DUP, with bias), packed as the mesh packs it, exact against its
-    plain version and timed in turns kernel, plain, kernel; then B3 on
-    the longest of those queries against all the targets, timed beside B4
-    on that one query."""
+    x P1_DUP, with bias), in the mesh's layout, exact against its plain
+    version and timed in turns kernel, plain, kernel: the kernel alone at
+    each block shape (CUDA events around its launches, the targets packed
+    once), the device packing of the targets apart, and the whole wrapper
+    with the packing; then B3 on the longest of those queries against all
+    the targets, timed beside B4 on that one query."""
+    import torch
     from spacepharer_tpu_torch.io.setdb import SetDB
     from spacepharer_tpu_torch.ops import sw_pallas as sp
     from spacepharer_tpu_torch.ops.align import sw_bias_i8
@@ -940,34 +978,50 @@ def phase5_production(dev, golden, p1, clock_hz):
         ts, max(8, -(-max(map(len, ts)) // 8) * 8), x_index=20)
     pack_s = time.perf_counter() - t0
     args = _dev_args(dev, q_prof, q_len, t_seqs.T, t_len)
+    A = q_prof.shape[2]
     cells = int(q_len.sum()) * int(t_len.sum())
-    k_ms = [_chain_out(sp.sw_scores_batch, args, 16, 2,
-                       P5_KERNEL_CALLS)[0]]
+    dpack_ms = _host_ms(sp.pack_targets, (args[2].t(), args[3], A),
+                        P5_KERNEL_CALLS)
+    packed = sp.pack_targets(args[2].t(), args[3], A)
+    kargs = (args[0], args[1], packed, 16, 2)
+    # turns: kernel, plain, kernel
+    k_ms = [_kernel_ms(sp, sp.sw_scores_packed, kargs, P5_KERNEL_CALLS)]
+    w_ms = [_chain_ms(sp.sw_scores_batch, args, 16, 2, P5_KERNEL_CALLS)]
     p_ms, ref = _chain_out(sp.sw_scores_batch_plain, args, 16, 2, 1,
                            warm=False)
-    k2, out = _chain_out(sp.sw_scores_batch, args, 16, 2, P5_KERNEL_CALLS)
-    k_ms.append(k2)
-    err = int((out - ref).abs().max())
-    del ref
+    k_ms.append(_kernel_ms(sp, sp.sw_scores_packed, kargs, P5_KERNEL_CALLS))
+    w_ms.append(_chain_ms(sp.sw_scores_batch, args, 16, 2, P5_KERNEL_CALLS))
+    err = max(int((o - ref).abs().max()) for _, o in k_ms)
+    w_out = sp.sw_scores_batch(*args, 16, 2)
+    err = max(err, int((w_out - ref).abs().max()))
+    del ref, w_out
+    k_ms = [ms for ms, _ in k_ms]
+    b1_ms, b1_chain = p1["ms"], p1["chain_ms"]
     print(f"phase5 production B4: {q_prof.shape[0]}x{t_seqs.shape[0]} "
           f"(LQ {q_prof.shape[1]}, LT {t_seqs.shape[1]}), {cells} true "
-          f"cells per call, host packing {pack_s:.3f} s; kernel ms {k_ms} "
-          f"-> {cells / (min(k_ms) * 1e-3):.6g} cells/s; plain {p_ms} ms "
-          f"-> {cells / (p_ms * 1e-3):.6g} cells/s; B1 on the same pairs "
-          f"{p1['ms']} ms -> {p1['cells'] / (p1['ms'] * 1e-3):.6g} cells/s;"
-          f" max|kernel-plain| = {err}")
+          f"cells per call, host packing {pack_s:.3f} s; kernel alone ms "
+          f"{k_ms} -> {cells / (min(k_ms) * 1e-3):.6g} cells/s; target "
+          f"packing on the card {dpack_ms:.4f} ms; wrapper with the "
+          f"packing {w_ms} ms; plain {p_ms} ms -> "
+          f"{cells / (p_ms * 1e-3):.6g} cells/s; B1 on the same pairs "
+          f"{b1_ms} ms kernel alone -> {p1['cells'] / (b1_ms * 1e-3):.6g} "
+          f"cells/s, {b1_chain} ms wrapper chain; B4/B1 "
+          f"{min(k_ms) / b1_ms:.4f} (kernels alone), "
+          f"{min(w_ms) / b1_chain:.4f} (wrapper chains); "
+          f"max|kernel-plain| = {err}")
+    k_ms = min(k_ms)
     if err:
         raise AssertionError("phase5 production: B4 != plain")
     qi = int(np.argmax(q_len))
     one = (args[0][qi], args[1][qi:qi + 1]) + args[2:]
     cells3 = int(q_len[qi]) * int(t_len.sum())
     one4 = (args[0][qi:qi + 1], args[1][qi:qi + 1]) + args[2:]
-    # turns: B3, B4 at Q = 1, B4 at Q = 1, B3
-    k3, out3 = _chain_out(sp.sw_scores_one_query, one, 16, 2,
+    # turns: B3, B4 at Q = 1, B4 at Q = 1, B3 (kernels alone)
+    k3, out3 = _kernel_ms(sp, sp.sw_scores_one_query, one + (16, 2),
                           P5_KERNEL_CALLS)
-    k4one = [_chain_out(sp.sw_scores_batch, one4, 16, 2, P5_KERNEL_CALLS)
-             for _ in range(2)]
-    k3 = [k3, _chain_out(sp.sw_scores_one_query, one, 16, 2,
+    k4one = [_kernel_ms(sp, sp.sw_scores_batch, one4 + (16, 2),
+                        P5_KERNEL_CALLS) for _ in range(2)]
+    k3 = [k3, _kernel_ms(sp, sp.sw_scores_one_query, one + (16, 2),
                          P5_KERNEL_CALLS)[0]]
     p3, ref3 = _chain_out(sp.sw_scores_one_query_plain, one, 16, 2, 1,
                           warm=False)
@@ -975,18 +1029,18 @@ def phase5_production(dev, golden, p1, clock_hz):
                + [int((o[0] - ref3).abs().max()) for _, o in k4one])
     k4one = [ms for ms, _ in k4one]
     print(f"phase5 production B3: query {qi} ({int(q_len[qi])} rows) x "
-          f"{t_seqs.shape[0]} targets, {cells3} true cells; kernel ms {k3} "
-          f"-> {cells3 / (min(k3) * 1e-3):.6g} cells/s; B4 on the same one "
-          f"query ms {k4one}; plain {p3} ms; max|kernel-plain| = {err3}")
+          f"{t_seqs.shape[0]} targets, {cells3} true cells; kernel alone ms "
+          f"{k3} -> {cells3 / (min(k3) * 1e-3):.6g} cells/s; B4 on the same "
+          f"one query ms {k4one}; plain {p3} ms; max|kernel-plain| = {err3}")
     k3 = min(k3)
     if err3:
         raise AssertionError("phase5 production: B3 (or B4 at Q = 1) != "
                              "plain")
-    b4_bound = _sw_bound(_sw_bytes(q_len, q_prof.shape[2], t_len, 4), cells,
+    b4_bound = _sw_bound(_sw_bytes(q_len, A, t_len, 1), cells, clock_hz)
+    b3_bound = _sw_bound(_sw_bytes(q_len[qi:qi + 1], A, t_len, 1), cells3,
                          clock_hz)
-    b3_bound = _sw_bound(_sw_bytes(q_len[qi:qi + 1], q_prof.shape[2], t_len,
-                                   4), cells3, clock_hz)
-    return {"b4": (err, min(k_ms), p_ms, b4_bound),
+    torch.cuda.synchronize()
+    return {"b4": (err, k_ms, p_ms, b4_bound),
             "b3": (err3, k3, p3, b3_bound)}
 
 
@@ -1066,11 +1120,13 @@ def phase5_corpus(dev, p3, tmp, seed):
     from spacepharer_tpu_torch.parallel import sharding
     from spacepharer_tpu_torch.pipeline import predictmatch as pm
 
-    spent = dict.fromkeys(("pack", "score", "mesh", "search_tpu"), 0.0)
+    spent = dict.fromkeys(("pack", "dpack", "score", "mesh", "search_tpu"),
+                          0.0)
     largest = {"out": np.zeros((0, 0), dtype=np.int32)}
-    names = ("pack_queries", "pack_targets", "sw_scores_batch",
-             "sharded_allpairs_scores")
-    orig = {name: getattr(sharding, name) for name in names}
+    patched = ((sharding, "pack_queries"), (sharding, "pack_targets"),
+               (sharding, "sharded_allpairs_scores"), (sp, "pack_targets"),
+               (sp, "sw_scores_packed"))
+    orig = {(mod, name): getattr(mod, name) for mod, name in patched}
     search_tpu = pm._search_tpu
 
     def timed(key, fn, sync=False):
@@ -1085,7 +1141,7 @@ def phase5_corpus(dev, p3, tmp, seed):
 
     def kept(mesh, q_list, t_list, matrix_scores, bias_list=None,
              gap_open=16, gap_extend=2):
-        out = orig["sharded_allpairs_scores"](
+        out = orig[(sharding, "sharded_allpairs_scores")](
             mesh, q_list, t_list, matrix_scores, bias_list, gap_open,
             gap_extend)
         if out.size > largest["out"].size:
@@ -1094,11 +1150,12 @@ def phase5_corpus(dev, p3, tmp, seed):
                            out=out)
         return out
 
-    sharding.pack_queries = timed("pack", orig["pack_queries"])
-    sharding.pack_targets = timed("pack", orig["pack_targets"])
-    sharding.sw_scores_batch = timed("score", orig["sw_scores_batch"],
-                                     sync=True)
+    sharding.pack_queries = timed("pack", orig[(sharding, "pack_queries")])
+    sharding.pack_targets = timed("pack", orig[(sharding, "pack_targets")])
     sharding.sharded_allpairs_scores = timed("mesh", kept)
+    sp.pack_targets = timed("dpack", orig[(sp, "pack_targets")], sync=True)
+    sp.sw_scores_packed = timed("score", orig[(sp, "sw_scores_packed")],
+                                sync=True)
     pm._search_tpu = timed("search_tpu", search_tpu)
     out = os.path.join(p3["base"], "mesh.tsv")
     before = timings()
@@ -1110,8 +1167,8 @@ def phase5_corpus(dev, p3, tmp, seed):
                        "2,4", "--use-tpu", "1", "--prefilter-engine", "host",
                        "-v", "1"])
     finally:
-        for name in names:
-            setattr(sharding, name, orig[name])
+        for (mod, name), fn in orig.items():
+            setattr(mod, name, fn)
         pm._search_tpu = search_tpu
     wall = time.perf_counter() - t0
     after = timings()
@@ -1127,9 +1184,10 @@ def phase5_corpus(dev, p3, tmp, seed):
           f"{after.get('search_rev', 0) - before.get('search_rev', 0):.3f}"
           f" s); _search_tpu {spent['search_tpu']:.3f} s: mesh scoring "
           f"{spent['mesh']:.3f} s (host packing {spent['pack']:.3f} s, "
-          f"B4 launches to a synchronise "
-          f"{spent['score']:.3f} s, the rest uploads, one transpose per "
-          f"target block, downloads and padding), bias + survivor realignment + the rest "
+          f"target packing on the card, once per target block, "
+          f"{spent['dpack']:.3f} s, B4 launches to a synchronise "
+          f"{spent['score']:.3f} s, the rest uploads, downloads and "
+          f"padding), bias + survivor realignment + the rest "
           f"{spent['search_tpu'] - spent['mesh']:.3f} s; over (c) and "
           f"(d): B4 launches {sp.batch_launches}, B3 launches "
           f"{sp.one_query_launches}, true cells {sp.cells}; text "
@@ -1214,9 +1272,35 @@ def phase5_entry_points(golden, tmp):
           f"({time.perf_counter() - t0:.3f} s, processes included)")
 
 
+def _sass_opcodes(path):
+    """Counter of the SASS opcodes in a built library (cuobjdump -sass),
+    or None where cuobjdump is missing or fails."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = shutil.which("cuobjdump") or os.path.join(
+        CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    try:
+        proc = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True)
+    except OSError as exc:
+        print(f"phase0 cuobjdump: {exc}")
+        return None
+    if proc.returncode != 0:
+        print(f"phase0 cuobjdump exited {proc.returncode}: "
+              f"{proc.stderr[-500:]}")
+        return None
+    ops = collections.Counter()
+    for line in proc.stdout.splitlines():
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if m:
+            ops[m.group(1)] += 1
+    return ops
+
+
 def _build_all():
-    """Build every kernel library at once (one nvcc each) and print each
-    one's ptxas registers and spills."""
+    """Build every kernel library at once (one nvcc each), print each
+    one's ptxas registers and spills, and the counts of SASS_COUNTED's
+    opcodes. Returns {library: {opcode: count}}."""
     from spacepharer_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
@@ -1229,6 +1313,46 @@ def _build_all():
         for line in _cuda.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("phase0 ptxas:", line.strip())
+    sass = {}
+    for name, pattern in SASS_COUNTED.items():
+        ops = _sass_opcodes(_cuda.lib_paths[name])
+        if ops is None:
+            continue
+        sass[name] = {op: n for op, n in sorted(ops.items())
+                      if pattern.search(op)}
+        print(f"phase0 SASS {name}: {sum(ops.values())} instructions; "
+              f"{sass[name]}")
+    return sass
+
+
+def _kernel_ms(module, fn, args, n):
+    """(mean ms of the kernel launches alone over n calls of fn(*args),
+    last output): the wrapper records CUDA events around its launches
+    into module.launch_events; one warm-up call first."""
+    import torch
+    fn(*args)
+    module.launch_events = []
+    try:
+        for _ in range(n):
+            out = fn(*args)
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in module.launch_events]
+    finally:
+        module.launch_events = None
+    return sum(ms) / len(ms), out
+
+
+def _host_ms(fn, args, n):
+    """Mean host ms of n calls of fn(*args), each ended by a synchronise
+    (for work that waits on the card inside, as the target packing)."""
+    import torch
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(*args)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
 
 
 def main():

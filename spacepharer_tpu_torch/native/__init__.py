@@ -144,6 +144,10 @@ def get_lib():
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
+    lib.prefilter_finalize_release.restype = None
+    lib.prefilter_finalize_release.argtypes = []
+    lib.prefilter_finalize_live.restype = ctypes.c_int64
+    lib.prefilter_finalize_live.argtypes = []
     lib.prefilter_batch.restype = ctypes.c_int64
     lib.prefilter_batch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,          # queries

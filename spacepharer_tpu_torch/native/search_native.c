@@ -28,6 +28,7 @@
 #include <unistd.h>
 
 /* from sw_native.c */
+extern void prefilter_finalize_release(void);
 extern int64_t prefilter_finalize(
     const int32_t *m_t, const uint16_t *m_d, int64_t n_matches,
     int32_t bin_bits,
@@ -459,18 +460,17 @@ static void pf_one_query(pf_worker_t *w, int64_t qi) {
     w->tm_fin += pf_now() - pf_t2;
 }
 
-static void *pf_worker_main(void *arg) {
-    pf_worker_t *w = (pf_worker_t *)arg;
+static void pf_worker_loop(pf_worker_t *w) {
     pf_shared_t *sh = w->sh;
     if (!buf_ensure(&w->st_t, 1 << 16, sizeof(int32_t))
             || !buf_ensure(&w->st_d, 1 << 16, sizeof(uint16_t))) {
         *sh->error = 1;
-        return NULL;
+        return;
     }
     w->loc = (pf_loc_t *)malloc(sizeof(pf_loc_t) * N_HALF);
     if (!w->loc) {
         *sh->error = 1;
-        return NULL;
+        return;
     }
     for (;;) {
         int64_t q0 = __atomic_fetch_add(sh->next_q, PF_CHUNK,
@@ -481,6 +481,14 @@ static void *pf_worker_main(void *arg) {
         for (int64_t qi = q0; qi < q1; qi++)
             pf_one_query(w, qi);
     }
+}
+
+/* Every worker frees its finalize scratch before it exits: the threads
+ * are fresh on every prefilter_batch call, and their thread-local scratch
+ * would otherwise outlive them. */
+static void *pf_worker_main(void *arg) {
+    pf_worker_loop((pf_worker_t *)arg);
+    prefilter_finalize_release();
     return NULL;
 }
 

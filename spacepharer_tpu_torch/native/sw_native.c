@@ -702,7 +702,11 @@ static int cmp_int64(const void *a, const void *b) {
  * (370k+ calls at catalog scale); fresh malloc/calloc per call made
  * first-touch page faults the dominant cost on hypervisor-backed RAM
  * (CLAUDE.md). The slot array is zeroed lazily: only slots touched by
- * THIS query's stream are reset at the end of the call. */
+ * THIS query's stream are reset at the end of the call (every return
+ * after the slots are first written comes after that reset, so they are
+ * all zero between calls). A thread that is done with the finalize frees
+ * its scratch with prefilter_finalize_release(); the batch workers do so
+ * before they exit. */
 typedef struct {
     int64_t *bin_off;   /* [n_bins+1] */
     int64_t *cur;       /* [n_bins] */
@@ -715,13 +719,30 @@ typedef struct {
     int64_t cap_matches;
     uint8_t *slots;
     int64_t cap_slots;
-    int slots_dirty;    /* OOM path left unknown slots set */
     int64_t *keys;
     pref_hit_t *hits;
     int64_t cap_emit;
 } pf_fin_ws_t;
 
 static __thread pf_fin_ws_t g_fin_ws;
+/* threads whose scratch is allocated and not yet released */
+static int64_t g_fin_ws_live = 0;
+
+void prefilter_finalize_release(void) {
+    pf_fin_ws_t *ws = &g_fin_ws;
+    if (!ws->bin_off && !ws->cur)
+        return;
+    free(ws->bin_off); free(ws->cur);
+    free(ws->s_t); free(ws->s_d); free(ws->kept);
+    free(ws->emit_t); free(ws->emit_d); free(ws->emit_idx);
+    free(ws->slots); free(ws->keys); free(ws->hits);
+    memset(ws, 0, sizeof(*ws));
+    __atomic_fetch_sub(&g_fin_ws_live, 1, __ATOMIC_RELAXED);
+}
+
+int64_t prefilter_finalize_live(void) {
+    return __atomic_load_n(&g_fin_ws_live, __ATOMIC_RELAXED);
+}
 
 static void *fin_grow(void **p, int64_t *cap, int64_t n, size_t elem) {
     if (n > *cap) {
@@ -752,8 +773,11 @@ int64_t prefilter_finalize(
     pf_fin_ws_t *ws = &g_fin_ws;
     if (n_bins + 1 > 4096) return -1;   /* bin_bits <= 11 always */
     if (!ws->bin_off) {
+        if (!ws->cur)
+            __atomic_fetch_add(&g_fin_ws_live, 1, __ATOMIC_RELAXED);
         ws->bin_off = (int64_t *)malloc(4096 * sizeof(int64_t));
-        ws->cur = (int64_t *)malloc(4096 * sizeof(int64_t));
+        if (!ws->cur)
+            ws->cur = (int64_t *)malloc(4096 * sizeof(int64_t));
         if (!ws->bin_off || !ws->cur)
             return -1;
     }
@@ -781,13 +805,8 @@ int64_t prefilter_finalize(
         free(ws->slots);
         ws->slots = (uint8_t *)calloc((size_t)n_slots * 2, 1);
         ws->cap_slots = ws->slots ? n_slots * 2 : 0;
-        ws->slots_dirty = 0;
     }
     slots = ws->slots;
-    if (slots && ws->slots_dirty) {
-        memset(slots, 0, (size_t)ws->cap_slots);
-        ws->slots_dirty = 0;
-    }
     int64_t *bin_off = ws->bin_off;
     memset(bin_off, 0, (size_t)(n_bins + 1) * sizeof(int64_t));
     if (!s_t || !s_d || !kept || !emit_t || !emit_d

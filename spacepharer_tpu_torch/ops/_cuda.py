@@ -21,6 +21,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs = {}
+lib_paths = {}      # the built library of each loaded kernel source
 build_seconds = {}
 build_log = {}      # nvcc/ptxas output: registers, spills per kernel
 
@@ -60,4 +61,5 @@ def library(name: str) -> ctypes.CDLL:
         build_seconds[name] = time.perf_counter() - t0
         build_log[name] = proc.stderr
     _libs[name] = ctypes.CDLL(lib_path)
+    lib_paths[name] = lib_path
     return _libs[name]

@@ -31,9 +31,11 @@ device path needs no postings index: only the tantan-masked flat target.
 
 On the card two hand-written kernels (csrc/prefilter_dense.cu) do the
 dense work: prefilter_dense_counts counts the hits of every (target tile,
-query tile) pair, and prefilter_dense_emit recomputes only the tiles with
-hits and writes each hit's coordinates. Each has a plain PyTorch version
-beside it (a one-hot matmul), which the wrappers run on CPU tensors.
+query tile) pair (an int8 tensor-core product over the rows that can
+match, compacted by compact_rows), and prefilter_dense_emit recomputes
+only the tiles with hits and writes each hit's coordinates. Each has a
+plain PyTorch version beside it (a one-hot matmul), which the wrappers
+run on CPU tensors.
 
 What the TPU version needed and this one does not: the fixed 8192-tile
 target chunk and the power-of-two query-tile bucket (one compiled Mosaic
@@ -56,6 +58,8 @@ TILE_Q = 256   # k-mer rows per tile
 TILE_T = 512   # target positions per tile
 KDIM = 128     # Qexp columns (6 * 21 = 126 used)
 N_OFF = 6      # offsets the kernel reads (fewer: zero Qexp blocks)
+MAX_K = N_OFF * 127   # no K of an int8 Qexp exceeds this: larger thr never hit
+ROW_TILE = 128        # compacted rows per row tile of the counts kernel
 
 # Card-memory bounds of the kernel path; output never depends on them.
 # A query chunk holds Qexp + thr on the card (132 B per row: 138 MB at
@@ -76,6 +80,10 @@ PLAIN_MAX_ELEMS = 1 << 26
 counts_launches = 0
 emit_launches = 0
 cells = 0
+# None, or a list to which each counts or emit call appends a (start,
+# stop) pair of CUDA events recorded around its kernel launch alone (the
+# row compaction and the emit's check left out)
+launch_events = None
 
 
 @dataclass
@@ -274,6 +282,41 @@ def prefilter_dense_counts_plain(qexp, thr, letters, tval, offsets):
     return out
 
 
+def compact_rows(qexp, thr):
+    """(qexp_c int8 [Rc, KDIM], thr_c int32 [Rc], q_tile int32 [Rc]): the
+    rows that can match (thr <= MAX_K), in order, with their thresholds
+    and their query tiles (row // TILE_Q), padded to a positive multiple
+    of ROW_TILE with rows of threshold THR_INVALID (query tile 0), on
+    qexp's device. The counts kernel reads this form."""
+    dev = qexp.device
+    keep = torch.nonzero(thr <= MAX_K).flatten()
+    n = keep.numel()
+    rc = max(-(-n // ROW_TILE), 1) * ROW_TILE
+    qexp_c = torch.zeros((rc, KDIM), dtype=torch.int8, device=dev)
+    thr_c = torch.full((rc,), THR_INVALID, dtype=torch.int32, device=dev)
+    q_tile = torch.zeros(rc, dtype=torch.int32, device=dev)
+    qexp_c[:n] = qexp[keep]
+    thr_c[:n] = thr[keep]
+    q_tile[:n] = (keep // TILE_Q).to(torch.int32)
+    return qexp_c, thr_c, q_tile
+
+
+def prefilter_dense_counts_compacted_plain(compacted, letters, tval,
+                                           offsets, nqt: int):
+    """Plain PyTorch version of the counts kernel on its own input, the
+    compact_rows form: int32 [ntt, nqt], each compacted row's hits per
+    target tile added into its query tile's count. Equals
+    prefilter_dense_counts_plain on the rows compact_rows was given."""
+    qexp_c, thr_c, q_tile = compacted
+    ntt = tval.numel() // TILE_T
+    out = torch.zeros((ntt, nqt), dtype=torch.int64, device=qexp_c.device)
+    for c0, mask in _plain_blocks(qexp_c, thr_c, letters, tval, offsets):
+        per = mask.reshape(mask.shape[0], -1, TILE_T).sum(dim=2)  # [Rc, nt]
+        out[c0 // TILE_T:c0 // TILE_T + per.shape[1]].index_add_(
+            1, q_tile.long(), per.T)
+    return out.to(torch.int32)
+
+
 def prefilter_dense_emit_plain(qexp, thr, letters, tval, offsets, tiles,
                                base, tile_counts, total: int):
     """Plain PyTorch version of the emit kernel: (gi, gj) int32 [total],
@@ -339,11 +382,14 @@ def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
 
 
-def prefilter_dense_counts(qexp, thr, letters, tval, offsets):
+def prefilter_dense_counts(qexp, thr, letters, tval, offsets,
+                           compacted=None):
     """int32 [ntt, nqt] hits per (target tile, query tile), the port of
     the TPU counts kernel (layout: the comment above pad_offsets).
 
-    On CUDA tensors this launches csrc/prefilter_dense.cu and raises if
+    On CUDA tensors this compacts the rows that can match (compact_rows,
+    or takes `compacted`, its output for these qexp and thr, made once
+    per query chunk) and launches csrc/prefilter_dense.cu, and raises if
     the kernel cannot be built or launched; on CPU tensors it runs
     prefilter_dense_counts_plain."""
     global counts_launches, cells
@@ -354,19 +400,46 @@ def prefilter_dense_counts(qexp, thr, letters, tval, offsets):
     if dev.type != "cuda":
         raise ValueError(f"prefilter_dense_counts: unsupported device {dev}")
     _check_layout(qexp, thr, letters, tval, offs)
+    qexp_c, thr_c, q_tile = (compact_rows(qexp, thr) if compacted is None
+                             else compacted)
+    for name, x, dtype in (("compacted qexp", qexp_c, torch.int8),
+                           ("compacted thr", thr_c, torch.int32),
+                           ("compacted q_tile", q_tile, torch.int32)):
+        _check(name, x, dtype, dev)
+    rc = qexp_c.shape[0]
+    if (qexp_c.dim() != 2 or qexp_c.shape[1] != KDIM or rc % ROW_TILE
+            or rc == 0 or thr_c.numel() != rc or q_tile.numel() != rc):
+        raise ValueError(f"prefilter_dense: compacted rows must be [Rc, "
+                         f"{KDIM}] with Rc a positive multiple of "
+                         f"{ROW_TILE}, one threshold and query tile each")
+    if qexp_c.data_ptr() % 16 or thr_c.data_ptr() % 16:
+        raise ValueError("prefilter_dense: compacted rows must be 16-byte "
+                         "aligned")
     from ._cuda import library
     lib = library("prefilter_dense")
+    if lib.prefilter_dense_row_tile() != ROW_TILE:
+        raise RuntimeError("prefilter_dense: ROW_TILE disagrees with the "
+                           "kernel")
     R, C = qexp.shape[0], tval.numel()
-    out = torch.empty((C // TILE_T, R // TILE_Q), dtype=torch.int32,
+    out = torch.zeros((C // TILE_T, R // TILE_Q), dtype=torch.int32,
                       device=dev)
+    stream = torch.cuda.current_stream(dev)
+    events = None
+    if launch_events is not None:
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        events[0].record(stream)
     err = lib.prefilter_dense_counts_launch(
-        _ptr(qexp), _ptr(thr), _ptr(letters), _ptr(tval),
-        (ctypes.c_int * N_OFF)(*offs), ctypes.c_int(R // TILE_Q),
-        ctypes.c_int(C // TILE_T), _ptr(out),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _ptr(qexp_c), _ptr(thr_c), _ptr(q_tile), _ptr(letters), _ptr(tval),
+        (ctypes.c_int * N_OFF)(*offs), ctypes.c_int(rc),
+        ctypes.c_int(R // TILE_Q), ctypes.c_int(C // TILE_T), _ptr(out),
+        ctypes.c_void_p(stream.cuda_stream))
     if err != 0:
         raise RuntimeError(f"prefilter_dense_counts kernel launch failed: "
                            f"CUDA error {err}")
+    if events is not None:
+        events[1].record(stream)
+        launch_events.append(events)
     counts_launches += 1
     cells += R * C
     return out
@@ -411,15 +484,24 @@ def prefilter_dense_emit(qexp, thr, letters, tval, offsets, tiles, base,
     from ._cuda import library
     lib = library("prefilter_dense")
     written = torch.empty(n, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    events = None
+    if launch_events is not None:
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        events[0].record(stream)
     err = lib.prefilter_dense_emit_launch(
         _ptr(qexp), _ptr(thr), _ptr(letters), _ptr(tval),
         (ctypes.c_int * N_OFF)(*offs), ctypes.c_int(qexp.shape[0] // TILE_Q),
         _ptr(tiles), _ptr(base), _ptr(tile_counts), ctypes.c_int(n),
         _ptr(gi), _ptr(gj), _ptr(written),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        ctypes.c_void_p(stream.cuda_stream))
     if err != 0:
         raise RuntimeError(f"prefilter_dense_emit kernel launch failed: "
                            f"CUDA error {err}")
+    if events is not None:
+        events[1].record(stream)
+        launch_events.append(events)
     emit_launches += 1
     if not torch.equal(written, tile_counts):
         raise RuntimeError(f"prefilter_dense_emit: the tiles wrote "
@@ -506,6 +588,8 @@ def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
     qexp = torch.from_numpy(qexp_np).to(dev)
     thr = torch.from_numpy(thr_np).to(dev)
     nqt = qexp_np.shape[0] // TILE_Q
+    # the counts kernel's compacted rows, once for every target chunk
+    compacted = compact_rows(qexp, thr) if dev.type == "cuda" else None
     # target chunk: MAX_TILES tiles, positions addressable in int32
     C = min(max(MAX_TILES // nqt, 1) * TILE_T, 1 << 30,
             max(-(-t_res // TILE_T), 1) * TILE_T)
@@ -514,7 +598,7 @@ def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
         letters, tval = target_chunk(batch, t_flat, t_bval, seed_scores,
                                      kmer_thr, c0, C, dev)
         tiles, base, tc, _ = hit_tiles(prefilter_dense_counts(
-            qexp, thr, letters, tval, offsets))
+            qexp, thr, letters, tval, offsets, compacted))
         base_np = base.cpu().numpy()
         ends_np = base_np + tc.cpu().numpy()
         # one emit launch per run of hit tiles holding <= MAX_EMIT_HITS

@@ -45,6 +45,10 @@ PLAIN_MAX_ELEMS = 1 << 24  # DP-state elements per target run (plain)
 # neither
 launches = 0
 cells = 0
+# None, or a list to which each kernel call appends a (start, stop) pair of
+# CUDA events recorded around its launches alone (the host work of the
+# wrapper left out)
+launch_events = None
 
 
 def pack_queries(q_list, matrix_scores, bias_list=None):
@@ -67,29 +71,53 @@ def pack_queries(q_list, matrix_scores, bias_list=None):
     return {"prof": prof, "q_off": q_off}
 
 
+def pack_runs(letters, lens, alpha: int, pad: int):
+    """The target layout of kernels B1 and B4, on letters' device.
+
+    letters: every target's letters concatenated in the caller's order
+    (any integer type), lens int [n_t]. The targets are sorted by length,
+    longest first (stable), and each becomes one uint8 run starting at a
+    multiple of T_ALIGN and padded to one with `pad`; a letter outside
+    [0, alpha) is stored as alpha. Returns (t_seqs uint8 [max(total,
+    T_ALIGN)], t_off int64 [n_t], t_len int32 [n_t] descending, order
+    int64 [n_t]: the caller's index of each run)."""
+    dev = letters.device
+    lens = lens.reshape(-1).to(dev, torch.int64)
+    n_t = lens.numel()
+    s_lens, order = torch.sort(lens, descending=True, stable=True)
+    padded = (s_lens + T_ALIGN - 1) // T_ALIGN * T_ALIGN
+    t_off = torch.cumsum(padded, 0) - padded
+    total = int(padded.sum()) if n_t else 0
+    t_seqs = torch.full((max(total, T_ALIGN),), pad, dtype=torch.uint8,
+                        device=dev)
+    n_res = letters.numel()
+    if n_res:
+        run = torch.empty_like(order)
+        run[order] = torch.arange(n_t, device=dev)
+        tid = torch.repeat_interleave(torch.arange(n_t, device=dev), lens,
+                                      output_size=n_res)
+        start = torch.cumsum(lens, 0) - lens
+        pos = t_off[run[tid]] + torch.arange(n_res, device=dev) - start[tid]
+        x = letters.reshape(-1).long()
+        t_seqs[pos] = torch.where((x >= 0) & (x < alpha), x,
+                                  alpha).to(torch.uint8)
+    return t_seqs, t_off, s_lens.to(torch.int32), order
+
+
 def pack_targets(t_list):
     """Targets longest first, 16-aligned, pad letter 31 (see module
-    docstring). Returns dict(t_seqs uint8, t_off int64 [n_t], t_len int32
-    [n_t], order int64 [n_t]: caller index of each packed slot)."""
+    docstring and pack_runs). Returns dict(t_seqs uint8, t_off int64
+    [n_t], t_len int32 [n_t], order int64 [n_t]: caller index of each
+    packed slot), numpy arrays."""
     lens = np.array([len(t) for t in t_list], dtype=np.int64)
-    order = np.argsort(-lens, kind="stable")
-    s_lens = lens[order]
-    padded = (s_lens + T_ALIGN - 1) // T_ALIGN * T_ALIGN
-    t_off = np.zeros(len(t_list), dtype=np.int64)
-    if len(t_list):
-        np.cumsum(padded[:-1], out=t_off[1:])
-    total = int(padded.sum())
-    t_seqs = np.full(max(total, T_ALIGN), PAD_LETTER, dtype=np.uint8)
-    n_res = int(s_lens.sum())
-    if n_res:
-        tcat = np.concatenate([np.asarray(t_list[i]) for i in order])
-        if tcat.min() < 0 or tcat.max() >= PAD_LETTER:
-            raise ValueError("target letters must lie in [0, 31)")
-        starts = np.cumsum(s_lens) - s_lens
-        pos = np.repeat(t_off - starts, s_lens) + np.arange(n_res)
-        t_seqs[pos] = tcat
-    return {"t_seqs": t_seqs, "t_off": t_off,
-            "t_len": s_lens.astype(np.int32), "order": order}
+    tcat = (np.concatenate([np.asarray(t, dtype=np.int64) for t in t_list])
+            if lens.sum() else np.zeros(0, np.int64))
+    if tcat.size and (tcat.min() < 0 or tcat.max() >= PAD_LETTER):
+        raise ValueError("target letters must lie in [0, 31)")
+    packed = pack_runs(torch.from_numpy(tcat), torch.from_numpy(lens),
+                       PAD_LETTER, PAD_LETTER)
+    return dict(zip(("t_seqs", "t_off", "t_len", "order"),
+                    (x.numpy() for x in packed)))
 
 
 def sw_allpairs_plain(prof, q_off, t_seqs, t_off, t_len,
@@ -203,10 +231,16 @@ def sw_allpairs(prof, q_off, t_seqs, t_off, t_len, gap_open: int = 16,
     scratch = torch.empty(max(n_slots * t_total * 2, 2), dtype=torch.int32,
                           device=dev)
     slot_d = slot.to(dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    cur = torch.cuda.current_stream(dev)
+    stream = cur.cuda_stream
     bounds = [0] + (torch.nonzero(group[1:] != group[:-1]).flatten() + 1
                     ).tolist() + [n_q]
     t_cells = int(t_len.sum())
+    events = None
+    if launch_events is not None:
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        events[0].record(cur)
     for q0, q1 in zip(bounds[:-1], bounds[1:]):
         err = lib.sw_allpairs_launch(
             ctypes.c_void_p(prof.data_ptr()),
@@ -224,6 +258,9 @@ def sw_allpairs(prof, q_off, t_seqs, t_off, t_len, gap_open: int = 16,
                                f"error {err}")
         launches += 1
         cells += int(q_lens[q0:q1].sum()) * t_cells
+    if events is not None:
+        events[1].record(cur)
+        launch_events.append(events)
     return out
 
 

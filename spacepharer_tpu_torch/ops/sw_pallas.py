@@ -20,11 +20,22 @@ TPU's multiples of 8 queries and 256 targets were its tile layout. A
 letter outside [0, A) scores 0, as the TPU kernels' one-hot product gives
 it. The one-hot MXU gather and the log2 shift-max cummax have no
 counterpart on the card.
+
+The kernel takes the targets packed (pack_targets, on their device) in
+kernel B1's layout (ops/sw_packed.py::pack_runs): uint8 runs, longest
+target first, each 16-aligned and padded to a multiple of 16; a letter
+outside [0, A) is stored as A (the profile's zero column) and a pad
+letter as A + 1 (a column of NEG). The mesh packs each target block once
+and calls sw_scores_packed; sw_scores_packed_plain runs the plain scan
+through the same packing, pad letters included.
 """
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .sw_packed import T_ALIGN, pack_runs
 
 NEG = -(10 ** 6)
 STRIPE = 16                 # query rows per register stripe (csrc/sw_dense.cu)
@@ -37,36 +48,59 @@ PLAIN_MAX_ELEMS = 1 << 26   # DP-state elements per target run (plain)
 one_query_launches = 0
 batch_launches = 0
 cells = 0
+# None, or a list to which each kernel call appends a (start, stop) pair of
+# CUDA events recorded around its launches alone (packing and the host
+# work of the wrapper left out)
+launch_events = None
 
 
-def sw_scores_batch_plain(q_prof, q_len, t_seqs, t_len, gap_open: int = 16,
-                          gap_extend: int = 2) -> torch.Tensor:
-    """Plain PyTorch version of B4: int32 [Q, T] on the inputs' device.
+@dataclass(frozen=True)
+class PackedTargets:
+    """Targets in the kernel's layout, on one device."""
+    seqs: torch.Tensor   # uint8 [t_total] runs (see the module docstring)
+    off: torch.Tensor    # int64 [T] start of each run, a multiple of 16
+    lens: torch.Tensor   # int32 [T] true lengths, descending
+    order: torch.Tensor  # int64 [T] the caller's index of each run
+    alpha: int           # profile width A the letters were mapped for
+    n_letters: int       # sum of lens
 
-    A scan over target columns, the JAX body's masks and NEG; targets are
-    taken in runs of at most PLAIN_MAX_ELEMS / (Q * LQ), each scanned up to
-    its own longest target (later columns are no-ops)."""
-    dev = q_prof.device
-    Q, LQ, A = q_prof.shape
-    LT, T = t_seqs.shape
-    q_len = q_len.reshape(-1).to(dev, torch.int32)
-    t_len = t_len.reshape(-1).to(dev, torch.int32)
+
+def pack_targets(t_rows, t_len, alpha: int) -> PackedTargets:
+    """Pack t_rows [T, LT] (integer letters, any strides; t_len [T]) for
+    a profile of width alpha, on t_rows' device, by pack_runs with the
+    pad letter alpha + 1."""
+    if not 0 < alpha <= 254:
+        raise ValueError(f"sw_dense: profile width {alpha} outside 1..254")
+    dev = t_rows.device
+    LT = t_rows.shape[1]
+    tl = t_len.reshape(-1).to(dev, torch.int64).clamp(0, LT)
+    letters = t_rows[torch.arange(LT, device=dev)[None, :] < tl[:, None]]
+    seqs, off, lens, order = pack_runs(letters, tl, alpha, alpha + 1)
+    return PackedTargets(seqs, off, lens, order, alpha, letters.numel())
+
+
+def _scan(prof, q_len, letters, scan_len, n_cols, gap_open, gap_extend):
+    """int32 [Q, T]: the plain column scan. prof [Q, LQ, C] int32 holds
+    the profile and its extra columns; letters [L, T] (any integer type)
+    are read as columns, a letter outside [0, n_cols) as column n_cols;
+    target t takes columns i < scan_len[t]. Targets are taken in runs of
+    at most PLAIN_MAX_ELEMS / (Q * LQ), each scanned up to its own longest
+    target (later columns are no-ops)."""
+    dev = prof.device
+    Q, LQ, _ = prof.shape
+    L, T = letters.shape
     out = torch.zeros((Q, T), dtype=torch.int32, device=dev)
-    if Q == 0 or T == 0 or LQ == 0 or LT == 0:
+    if Q == 0 or T == 0 or LQ == 0 or L == 0:
         return out
     jpos = torch.arange(LQ, dtype=torch.int32, device=dev)
     q_mask = (jpos[None, :] < q_len[:, None])[:, :, None]      # [Q, LQ, 1]
     c1 = (gap_extend * (jpos + 1) - gap_open)[None, :, None]
     c2 = (gap_extend * jpos)[None, :, None]
-    # column A scores 0: where a letter outside [0, A) reads
-    prof_z = torch.cat([q_prof.to(torch.int32),
-                        torch.zeros((Q, LQ, 1), dtype=torch.int32,
-                                    device=dev)], dim=2)
     chunk = max(1, PLAIN_MAX_ELEMS // (Q * LQ))
     for t0 in range(0, T, chunk):
-        tl = t_len[t0:t0 + chunk]
+        tl = scan_len[t0:t0 + chunk]
         nt = tl.numel()
-        width = min(int(tl.max()), LT)
+        width = min(int(tl.max()), L)
         if width <= 0:
             continue
         H = torch.zeros((Q, LQ, nt), dtype=torch.int32, device=dev)
@@ -75,9 +109,9 @@ def sw_scores_batch_plain(q_prof, q_len, t_seqs, t_len, gap_open: int = 16,
         zero = torch.zeros((Q, 1, nt), dtype=torch.int32, device=dev)
         neg = torch.full((Q, 1, nt), NEG, dtype=torch.int32, device=dev)
         for i in range(width):
-            letters = t_seqs[i, t0:t0 + nt].long()
-            letters = torch.where((letters >= 0) & (letters < A), letters, A)
-            sub = prof_z.index_select(2, letters)              # [Q, LQ, nt]
+            col = letters[i, t0:t0 + nt].long()
+            col = torch.where((col >= 0) & (col < n_cols), col, n_cols)
+            sub = prof.index_select(2, col)                    # [Q, LQ, nt]
             h_diag = torch.cat([zero, H[:, :-1, :]], dim=1)
             h_pre = torch.clamp_min(torch.maximum(h_diag + sub, E), 0)
             h_pre = torch.where(q_mask, h_pre, 0)
@@ -95,6 +129,51 @@ def sw_scores_batch_plain(q_prof, q_len, t_seqs, t_len, gap_open: int = 16,
     return out
 
 
+def sw_scores_batch_plain(q_prof, q_len, t_seqs, t_len, gap_open: int = 16,
+                          gap_extend: int = 2) -> torch.Tensor:
+    """Plain PyTorch version of B4: int32 [Q, T] on the inputs' device.
+
+    A scan over target columns, the JAX body's masks and NEG; column A
+    of the profile scores 0, where a letter outside [0, A) reads."""
+    dev = q_prof.device
+    Q, LQ, A = q_prof.shape
+    LT = t_seqs.shape[0]
+    prof_z = torch.cat([q_prof.to(torch.int32),
+                        torch.zeros((Q, LQ, 1), dtype=torch.int32,
+                                    device=dev)], dim=2)
+    return _scan(prof_z, q_len.reshape(-1).to(dev, torch.int32), t_seqs,
+                 t_len.reshape(-1).to(dev, torch.int64).clamp(0, LT), A,
+                 gap_open, gap_extend)
+
+
+def sw_scores_packed_plain(q_prof, q_len, targets: PackedTargets,
+                           gap_open: int = 16,
+                           gap_extend: int = 2) -> torch.Tensor:
+    """Plain PyTorch version of B4 on packed targets, as the kernel sees
+    them: the target runs in packed order, each scanned over its whole
+    16-letter chunks (pad letters read the NEG column A + 1), and the
+    order undone at the end. int32 [Q, T] in the caller's order, equal to
+    sw_scores_batch_plain."""
+    dev = q_prof.device
+    Q, LQ, A = q_prof.shape
+    T = targets.order.numel()
+    q_len = q_len.reshape(-1).to(dev, torch.int32)
+    out = torch.zeros((Q, T), dtype=torch.int32, device=dev)
+    padded = (targets.lens.long() + T_ALIGN - 1) // T_ALIGN * T_ALIGN
+    if Q == 0 or T == 0 or int(padded.max()) == 0:
+        return out
+    i = torch.arange(int(padded.max()), device=dev)
+    idx = (targets.off[None, :] + i[:, None]).clamp(
+        max=targets.seqs.numel() - 1)
+    prof = torch.cat([q_prof.to(torch.int32),
+                      torch.zeros((Q, LQ, 1), dtype=torch.int32, device=dev),
+                      torch.full((Q, LQ, 1), NEG, dtype=torch.int32,
+                                 device=dev)], dim=2)
+    out[:, targets.order] = _scan(prof, q_len, targets.seqs[idx], padded,
+                                  A + 2, gap_open, gap_extend)
+    return out
+
+
 def sw_scores_one_query_plain(q_prof, q_len, t_seqs, t_len,
                               gap_open: int = 16,
                               gap_extend: int = 2) -> torch.Tensor:
@@ -104,28 +183,39 @@ def sw_scores_one_query_plain(q_prof, q_len, t_seqs, t_len,
                                  t_len, gap_open, gap_extend)[0]
 
 
-def _check(x, name, dev, numel=None):
-    if x.device != dev or x.dtype != torch.int32 or not x.is_contiguous():
-        raise ValueError(f"sw_dense: {name} must be a contiguous int32 "
+def _check(x, name, dev, numel=None, dtype=torch.int32):
+    if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"sw_dense: {name} must be a contiguous {dtype} "
                          f"tensor on {dev}, got {x.dtype} on {x.device}")
     if numel is not None and x.numel() != numel:
         raise ValueError(f"sw_dense: {name} must have {numel} elements, "
                          f"got {x.numel()}")
 
 
-def _launch(q_prof, q_len, t_seqs, t_len, gap_open, gap_extend, one_query):
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _launch(q_prof, q_len, targets: PackedTargets, gap_open, gap_extend,
+            one_query):
     """Checks, scratch slots and launches of csrc/sw_dense.cu; int32
-    [Q, T] on the inputs' card."""
+    [Q, T] in the caller's order, on the inputs' card."""
     global one_query_launches, batch_launches, cells
     dev = q_prof.device
     Q, LQ, A = q_prof.shape
-    if t_seqs.dim() != 2:
-        raise ValueError("sw_dense: t_seqs must be [LT, T]")
-    LT, T = t_seqs.shape
+    T = targets.order.numel()
     _check(q_prof, "q_prof", dev)
     _check(q_len, "q_len", dev, Q)
-    _check(t_seqs, "t_seqs", dev)
-    _check(t_len, "t_len", dev, T)
+    for name, x, dtype in (("seqs", targets.seqs, torch.uint8),
+                           ("off", targets.off, torch.int64),
+                           ("lens", targets.lens, torch.int32),
+                           ("order", targets.order, torch.int64)):
+        _check(x, f"packed {name}", dev, dtype=dtype)
+    if targets.alpha != A:
+        raise ValueError(f"sw_dense: targets packed for {targets.alpha} "
+                         f"profile columns, the profile has {A}")
+    if targets.seqs.data_ptr() % T_ALIGN:
+        raise ValueError("sw_dense: packed targets must be 16-byte aligned")
     from ._cuda import library
     lib = library("sw_dense")
     if lib.sw_dense_stripe() != STRIPE:
@@ -137,40 +227,35 @@ def _launch(q_prof, q_len, t_seqs, t_len, gap_open, gap_extend, one_query):
     if Q == 0 or T == 0:
         return out
     # queries longer than one stripe hand stripe boundaries through a
-    # scratch line [LT, T] of int2 each; bound the scratch per launch
-    lens = q_len.reshape(-1).cpu().clamp(0, LQ)
+    # scratch line of int2 per packed letter; bound the scratch per launch
+    q_flat = q_len.reshape(-1)
+    lens = q_flat.cpu().clamp(0, LQ)
     long_q = lens > STRIPE
-    per_launch = max(1, SCRATCH_BYTES // (8 * max(LT, 1) * T))
+    t_total = targets.seqs.numel()
+    per_launch = max(1, SCRATCH_BYTES // (8 * t_total))
     n_slots = min(int(long_q.sum()), per_launch)
-    scratch = torch.empty(max(n_slots * LT * T * 2, 2), dtype=torch.int32,
+    scratch = torch.empty(max(n_slots * t_total * 2, 2), dtype=torch.int32,
                           device=dev)
-    bounds = [0, Q]
-    if not one_query:       # B3's one query takes slot 0
-        rank = torch.cumsum(long_q.long(), 0) - 1
-        slot_d = torch.where(long_q, rank % per_launch, -1).int().to(dev)
-        group = torch.clamp_min(rank, 0) // per_launch
-        starts = set((torch.nonzero(group[1:] != group[:-1]).flatten()
-                      + 1).tolist())
-        starts.update(range(0, Q, lib.sw_dense_max_queries()))
-        bounds = sorted(starts) + [Q]
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    t_cells = int(t_len.clamp(0, LT).sum())
-    common = (ctypes.c_int(LT), ctypes.c_int(gap_open),
-              ctypes.c_int(gap_extend), ctypes.c_void_p(scratch.data_ptr()))
+    rank = torch.cumsum(long_q.long(), 0) - 1
+    slot_d = torch.where(long_q, rank % per_launch, -1).int().to(dev)
+    group = torch.clamp_min(rank, 0) // per_launch
+    bounds = [0] + (torch.nonzero(group[1:] != group[:-1]).flatten()
+                    + 1).tolist() + [Q]
+    stream = torch.cuda.current_stream(dev)
+    events = None
+    if launch_events is not None:
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        events[0].record(stream)
     for q0, q1 in zip(bounds[:-1], bounds[1:]):
-        head = (ctypes.c_void_p(q_prof[q0].data_ptr()),
-                ctypes.c_void_p(q_len.reshape(-1)[q0:].data_ptr()))
-        tail = (ctypes.c_void_p(t_seqs.data_ptr()),
-                ctypes.c_void_p(t_len.data_ptr()))
-        if one_query:
-            err = lib.sw_one_query(*head, *tail, ctypes.c_int(LQ),
-                                   ctypes.c_int(A), ctypes.c_int(T), *common,
-                                   ctypes.c_void_p(out.data_ptr()), stream)
-        else:
-            err = lib.sw_batch(*head, ctypes.c_void_p(slot_d[q0:].data_ptr()),
-                               *tail, ctypes.c_int(q1 - q0), ctypes.c_int(LQ),
-                               ctypes.c_int(A), ctypes.c_int(T), *common,
-                               ctypes.c_void_p(out[q0].data_ptr()), stream)
+        err = lib.sw_dense_launch(
+            _ptr(q_prof[q0:]), _ptr(q_flat[q0:]), _ptr(slot_d[q0:]),
+            _ptr(targets.seqs), _ptr(targets.off), _ptr(targets.lens),
+            _ptr(targets.order), ctypes.c_int(q1 - q0), ctypes.c_int(LQ),
+            ctypes.c_int(A), ctypes.c_int(T), ctypes.c_longlong(t_total),
+            ctypes.c_longlong(T), ctypes.c_int(gap_open),
+            ctypes.c_int(gap_extend), _ptr(scratch), _ptr(out[q0:]),
+            ctypes.c_void_p(stream.cuda_stream))
         if err != 0:
             raise RuntimeError(f"sw_dense kernel launch failed: CUDA error "
                                f"{err}")
@@ -178,21 +263,46 @@ def _launch(q_prof, q_len, t_seqs, t_len, gap_open, gap_extend, one_query):
             one_query_launches += 1
         else:
             batch_launches += 1
-        cells += int(lens[q0:q1].sum()) * t_cells
+        cells += int(lens[q0:q1].sum()) * targets.n_letters
+    if events is not None:
+        events[1].record(stream)
+        launch_events.append(events)
     return out
+
+
+def _device(x, what):
+    dev = x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    return dev
+
+
+def sw_scores_packed(q_prof, q_len, targets: PackedTargets,
+                     gap_open: int = 16, gap_extend: int = 2) -> torch.Tensor:
+    """B4 on targets packed by pack_targets (the mesh's entry): int32
+    [Q, T] in the caller's order. On CUDA tensors this launches
+    csrc/sw_dense.cu and raises if the kernel cannot be built or
+    launched; on CPU tensors it runs sw_scores_packed_plain."""
+    if _device(q_prof, "sw_scores_packed").type == "cpu":
+        return sw_scores_packed_plain(q_prof, q_len, targets, gap_open,
+                                      gap_extend)
+    return _launch(q_prof, q_len, targets, gap_open, gap_extend, False)
 
 
 def _dispatch(plain, q_prof, q_len, t_seqs, t_len, gap_open, gap_extend,
               one_query):
-    dev = q_prof.device
+    dev = _device(q_prof, "sw_dense")
     if dev.type == "cpu":
         return plain(q_prof, q_len, t_seqs, t_len, gap_open, gap_extend)
-    if dev.type != "cuda":
-        raise ValueError(f"sw_dense: unsupported device {dev}")
-    if one_query:
-        return _launch(q_prof[None], q_len, t_seqs, t_len, gap_open,
-                       gap_extend, True)[0]
-    return _launch(q_prof, q_len, t_seqs, t_len, gap_open, gap_extend, False)
+    if t_seqs.dim() != 2:
+        raise ValueError("sw_dense: t_seqs must be [LT, T]")
+    _check(t_seqs, "t_seqs", dev)
+    _check(t_len, "t_len", dev, t_seqs.shape[1])
+    prof = q_prof[None] if one_query else q_prof
+    out = _launch(prof, q_len, pack_targets(t_seqs.t(), t_len,
+                                            prof.shape[2]),
+                  gap_open, gap_extend, one_query)
+    return out[0] if one_query else out
 
 
 def sw_scores_batch(q_prof, q_len, t_seqs, t_len, gap_open: int = 16,
@@ -201,9 +311,9 @@ def sw_scores_batch(q_prof, q_len, t_seqs, t_len, gap_open: int = 16,
     against t_seqs [LT, T] (t_len [T]); q_len and t_len may carry the JAX
     package's [Q, 1, 1] and [1, T] shapes.
 
-    On CUDA tensors this launches csrc/sw_dense.cu and raises if the
-    kernel cannot be built or launched; on CPU tensors it runs
-    sw_scores_batch_plain."""
+    On CUDA tensors this packs the targets and launches csrc/sw_dense.cu,
+    and raises if the kernel cannot be built or launched; on CPU tensors
+    it runs sw_scores_batch_plain."""
     return _dispatch(sw_scores_batch_plain, q_prof, q_len, t_seqs, t_len,
                      gap_open, gap_extend, False)
 
@@ -211,7 +321,8 @@ def sw_scores_batch(q_prof, q_len, t_seqs, t_len, gap_open: int = 16,
 def sw_scores_one_query(q_prof, q_len, t_seqs, t_len, gap_open: int = 16,
                         gap_extend: int = 2) -> torch.Tensor:
     """B3: int32 [T] best scores of one query profile [LQ, A] (q_len of
-    one element) against t_seqs [LT, T]; CUDA or plain as sw_scores_batch."""
+    one element) against t_seqs [LT, T]; the kernel at Q = 1, or plain,
+    as sw_scores_batch."""
     return _dispatch(sw_scores_one_query_plain, q_prof, q_len, t_seqs, t_len,
                      gap_open, gap_extend, True)
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops.sw_pallas import pack_targets
 from .sharding import merge_topk, shard_step, sum_per_qset
 
 
@@ -100,11 +101,12 @@ def distributed_search_pipeline(n_q: int, n_t: int, top_k: int, n_sets: int,
         def dev(x):
             return torch.as_tensor(x, dtype=torch.int32).to(device)
         t_local = len(t_seqs)
-        sc, idx, best = shard_step(dev(q_prof), dev(q_len),
-                                   dev(t_seqs).t().contiguous(),
-                                   dev(t_len), top_k, j * t_local,
-                                   dev(set_of_t), n_sets, gap_open,
-                                   gap_extend)
+        qp = dev(q_prof)
+        sc, idx, best = shard_step(qp, dev(q_len),
+                                   pack_targets(dev(t_seqs), dev(t_len),
+                                                qp.shape[2]),
+                                   top_k, j * t_local, dev(set_of_t), n_sets,
+                                   gap_open, gap_extend)
         sc_all = [torch.empty_like(sc) for _ in range(n_t)]
         idx_all = [torch.empty_like(idx) for _ in range(n_t)]
         dist.all_gather(sc_all, sc.contiguous(), group=t_group)

@@ -4,7 +4,8 @@ The port of spacepharer_tpu/parallel/sharding.py. The reference splits
 its work by target-DB splits (Prefiltering.cpp:709-740) and query splits
 (MPI ranks); here the target ORFs shard over the mesh's ``t`` axis and
 the query rows over its ``q`` axis, every shard scores its (query block x
-target block) rectangle with kernel B4 (ops/sw_pallas.py), and the
+target block) rectangle with kernel B4 (ops/sw_pallas.py, on the target
+block packed once per device), and the
 per-split merge (Prefiltering::mergeTargetSplits) is a top-k over the
 gathered shard top-k lists.
 
@@ -22,7 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.sw_pallas import sw_scores_batch
+from ..ops import sw_pallas
 
 
 @dataclass(frozen=True)
@@ -65,12 +66,13 @@ def sw_score_allpairs(q_prof, q_len, t_seqs, t_len, gap_open: int,
     """All-pairs SW scores int32 [Q, T] on q_prof's device.
 
     q_prof int32 [Q, LQ, A] per-position profiles, q_len [Q], t_seqs
-    int32 [T, LT] (the JAX layout), t_len [T]. Kernel B4 takes the
-    targets transposed, [LT, T]; the mesh below transposes each target
-    block once and calls it directly. On CPU tensors its plain version
-    runs."""
-    return sw_scores_batch(q_prof, q_len, t_seqs.t().contiguous(), t_len,
-                           gap_open, gap_extend)
+    int32 [T, LT] (the JAX layout), t_len [T], packed for kernel B4 as
+    the mesh below packs each target block. On CPU tensors the plain
+    version runs through the same packing."""
+    return sw_pallas.sw_scores_packed(
+        q_prof, q_len, sw_pallas.pack_targets(t_seqs, t_len,
+                                              q_prof.shape[2]),
+        gap_open, gap_extend)
 
 
 def topk_desc(scores, k: int, index=None, n_index: int = None):
@@ -104,16 +106,16 @@ def sum_per_qset(best_set, set_of_q, n_qsets: int):
     return out.index_add_(0, set_of_q.long(), best_set)
 
 
-def shard_step(q_prof, q_len, t_cols, t_len, top_k: int, t_offset: int,
+def shard_step(q_prof, q_len, targets, top_k: int, t_offset: int,
                set_of_t=None, n_sets: int = 0, gap_open: int = 16,
                gap_extend: int = 2):
-    """The per-shard core: SW scores of the shard (targets t_cols [LT, T],
-    transposed), their top-k with global target ids (local id +
-    t_offset), and, when set_of_t is given, the best score per target
-    set. Returns (scores [Ql, k'], ids [Ql, k'], best_set [Ql, n_sets] or
-    None), k' = min(top_k, local targets)."""
-    scores = sw_scores_batch(q_prof, q_len, t_cols, t_len, gap_open,
-                             gap_extend)
+    """The per-shard core: SW scores of the shard (targets packed by
+    sw_pallas.pack_targets), their top-k with global target ids (local
+    id + t_offset), and, when set_of_t is given, the best score per
+    target set. Returns (scores [Ql, k'], ids [Ql, k'], best_set [Ql,
+    n_sets] or None), k' = min(top_k, local targets)."""
+    scores = sw_pallas.sw_scores_packed(q_prof, q_len, targets, gap_open,
+                                        gap_extend)
     sc, idx = topk_desc(scores, min(top_k, scores.shape[1]))
     best = None if set_of_t is None else best_per_set(scores, set_of_t,
                                                       n_sets)
@@ -135,16 +137,24 @@ def _split(mesh, Q, T):
     return Q // nq, T // nt
 
 
-def _placer():
-    """on(dev, key, x): x copied to dev, contiguous, once per (dev, key);
-    a transposed target block is thus transposed once per device."""
+def _placer(alpha: int):
+    """(on, packed): on(dev, key, x) is x copied to dev, contiguous, and
+    packed(dev, j, t_block, t_len_block) the target block j packed for
+    kernel B4 on dev (a profile of width alpha), each made once per
+    device, so a target block is packed once and not once per q shard."""
     placed = {}
 
     def on(dev, key, x):
         if (dev, key) not in placed:
             placed[(dev, key)] = x.to(dev).contiguous()
         return placed[(dev, key)]
-    return on
+
+    def packed(dev, j, t_block, t_len_block):
+        if (dev, ("tp", j)) not in placed:
+            placed[(dev, ("tp", j))] = sw_pallas.pack_targets(
+                t_block.to(dev), t_len_block.to(dev), alpha)
+        return placed[(dev, ("tp", j))]
+    return on, packed
 
 
 def _run_mesh(mesh, q_prof, q_len, t_seqs, t_len, top_k, set_of_t=None,
@@ -158,7 +168,7 @@ def _run_mesh(mesh, q_prof, q_len, t_seqs, t_len, top_k, set_of_t=None,
     if set_of_t is not None:
         set_of_t = torch.as_tensor(set_of_t, dtype=torch.int32)
     ql, tl = _split(mesh, q_prof.shape[0], t_seqs.shape[0])
-    on = _placer()
+    on, packed = _placer(q_prof.shape[2])
     for i in range(nq):
         home = mesh.device(i, 0)
         qs = slice(i * ql, (i + 1) * ql)
@@ -168,8 +178,7 @@ def _run_mesh(mesh, q_prof, q_len, t_seqs, t_len, top_k, set_of_t=None,
             ts = slice(j * tl, (j + 1) * tl)
             sc, idx, b = shard_step(
                 on(dev, ("qp", i), q_prof[qs]), on(dev, ("ql", i), q_len[qs]),
-                on(dev, ("tc", j), t_seqs[ts].t()),
-                on(dev, ("tl", j), t_len[ts]), top_k, j * tl,
+                packed(dev, j, t_seqs[ts], t_len[ts]), top_k, j * tl,
                 None if set_of_t is None else on(dev, ("st", j),
                                                  set_of_t[ts]),
                 n_sets, gap_open, gap_extend)
@@ -259,16 +268,15 @@ def sharded_allpairs_scores(mesh: Mesh, q_list, t_list, matrix_scores,
     q_prof, q_len = torch.from_numpy(q_prof), torch.from_numpy(q_len)
     t_seqs, t_len = torch.from_numpy(t_seqs), torch.from_numpy(t_len)
     out = np.empty((Q, T), dtype=np.int32)
-    on = _placer()
+    on, packed = _placer(q_prof.shape[2])
     for i in range(nq_sh):
         qs = slice(i * ql, (i + 1) * ql)
         for j in range(nt_sh):
             dev = mesh.device(i, j)
             ts = slice(j * tl, (j + 1) * tl)
-            out[qs, ts] = sw_scores_batch(
+            out[qs, ts] = sw_pallas.sw_scores_packed(
                 on(dev, ("qp", i), q_prof[qs]), on(dev, ("ql", i), q_len[qs]),
-                on(dev, ("tc", j), t_seqs[ts].t()),
-                on(dev, ("tl", j), t_len[ts]),
+                packed(dev, j, t_seqs[ts], t_len[ts]),
                 gap_open, gap_extend).cpu().numpy()
     return out[:len(q_list), :len(t_list)]
 

@@ -64,8 +64,7 @@ VERBATIM = [
     "__main__.py", "alphabet.py", "cli_expert.py", "logging.py",
     "io/entries_tsv.py", "io/fasta.py", "io/mmseqs_compat.py",
     "io/setdb.py", "io/spacer_formats.py",
-    "native/banded_native.c", "native/search_native.c",
-    "native/sw_native.c", "native/tantan_native.c",
+    "native/banded_native.c", "native/tantan_native.c",
     "ops/align.py", "ops/banded_nucl.py", "ops/bias.py", "ops/evalue.py",
     "ops/matrices.py", "ops/orf.py", "ops/prefilter.py", "ops/rescore.py",
     "ops/revcodon.py", "ops/tantan.py", "ops/translate.py",

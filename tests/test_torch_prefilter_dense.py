@@ -10,6 +10,9 @@ only where the JAX side runs, so the `cuda` cases also run where JAX is
 not installed (`pytest -m cuda tests/test_torch_prefilter_dense.py` on a
 GPU box).
 """
+from dataclasses import dataclass
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -62,6 +65,140 @@ def pairs(gi, gj):
     return sorted(zip(np.asarray(gi).tolist(), np.asarray(gj).tolist()))
 
 
+@dataclass
+class _EdgeParams:
+    """What the dense pass reads of PrefilterParams, with any offsets."""
+    offsets: np.ndarray
+    pattern_span: int
+    kmer_thr: int
+
+    def kmer_threshold(self):
+        return self.kmer_thr
+
+
+def _plant(rng, pieces, n_random, length=(20, 80)):
+    """Target ORFs: each piece with random flanks, then random ORFs."""
+    ts = [np.concatenate([rng.integers(0, 20, int(rng.integers(0, 9))),
+                          np.asarray(p), rng.integers(0, 20, 5)])
+          for p in pieces]
+    ts += [rng.integers(0, 20, int(rng.integers(*length)))
+           for _ in range(n_random)]
+    return [t.astype(np.uint8) for t in ts]
+
+
+def _self_scores(batch, scores):
+    """int64 [n_rows]: each k-mer row's K against its own k-mer."""
+    d = np.diag(scores).astype(np.int64)
+    return sum(d[batch.q_flat[o:o + batch.n_rows]] for o in batch.offsets)
+
+
+def _edge_thr762():
+    """A matrix with 127 on the diagonal: rows at thr = 762 whose k-mer is
+    planted exactly (K = 762: a hit) or with one mismatch (no hit), a row
+    at 761, and the other valid rows at 700 (only exact k-mers hit)."""
+    rng = np.random.default_rng(31)
+    S = rng.integers(-40, 41, (21, 21))
+    np.fill_diagonal(S, 127)
+    S[20, :] = S[:, 20] = -1
+    params = _EdgeParams(np.array([0, 1, 3, 4, 5, 7]), 8, 100)
+    q_all = [rng.integers(0, 20, 12) for _ in range(4)]
+    one_off = q_all[1][:8].copy()
+    one_off[0] = (one_off[0] + 1) % 20
+    targets = _plant(rng, [q_all[0], one_off, q_all[2][:8], q_all[3]], 6)
+    batch = pd.build_query_batch(q_all, list(range(4)),
+                                 [np.zeros(12)] * 4, params)
+    valid = batch.kmer_thr <= pd.MAX_K
+    batch.kmer_thr[valid] = 700
+    s0 = batch.q_starts
+    batch.kmer_thr[[s0[0], s0[1]]] = 762
+    batch.kmer_thr[s0[2]] = 761
+    return params, S, batch, targets
+
+
+def _edge_thr0():
+    """Rows at thr = 0: every valid position with K >= 0 hits."""
+    rng = np.random.default_rng(32)
+    params = PrefilterParams(mask=False)
+    S = load_matrix(params.seed_matrix, 8.0).scores
+    q_all = [rng.integers(0, 20, int(n)) for n in (10, 13, 9)]
+    batch = pd.build_query_batch(q_all, [0, 1, 2],
+                                 [np.zeros(len(q)) for q in q_all], params)
+    batch.kmer_thr[batch.kmer_thr <= pd.MAX_K] = 0
+    return params, S, batch, _plant(rng, [], 12)
+
+
+def _edge_tile_fill():
+    """Query tiles with 0, 1, 15, 16, 17 and 256 rows that can match (one
+    1,543-letter query: six tiles of 256 rows, and a seventh of its last
+    7 rows, which cannot match); each such row at its own K less 20, and
+    its k-mer planted once."""
+    rng = np.random.default_rng(33)
+    params = PrefilterParams(mask=False)
+    S = load_matrix(params.seed_matrix, 8.0).scores
+    q = rng.integers(0, 20, 6 * pd.TILE_Q + 7)
+    batch = pd.build_query_batch([q], [0], [np.zeros(len(q))], params)
+    own = _self_scores(batch, S)
+    batch.kmer_thr[:] = pd.THR_INVALID
+    pieces = []
+    for tile, n in enumerate((0, 1, 15, 16, 17, 256)):
+        rows = tile * pd.TILE_Q + np.sort(rng.choice(pd.TILE_Q, n,
+                                                     replace=False))
+        batch.kmer_thr[rows] = np.maximum(own[rows] - 20, 0)
+        if n < pd.TILE_Q:
+            pieces += [q[r:r + 8] for r in rows]
+    pieces.append(q[5 * pd.TILE_Q:6 * pd.TILE_Q + 7])
+    return params, S, batch, _plant(rng, pieces, 4)
+
+
+def _edge_four_offsets():
+    """4 spaced offsets (0, 1, 3, 4): Qexp blocks 4 and 5 are zero."""
+    rng = np.random.default_rng(34)
+    params = _EdgeParams(np.array([0, 1, 3, 4]), 5, 75)
+    S = load_matrix(PrefilterParams().seed_matrix, 8.0).scores
+    q_all = [rng.integers(0, 20, int(n)) for n in (14, 11, 16, 9, 12)]
+    batch = pd.build_query_batch(q_all, list(range(5)),
+                                 [np.zeros(len(q)) for q in q_all], params)
+    return params, S, batch, _plant(rng, q_all, 10)
+
+
+EDGE_CASES = {"thr762": _edge_thr762, "thr0": _edge_thr0,
+              "tile_fill": _edge_tile_fill,
+              "four_offsets": _edge_four_offsets}
+
+
+def edge_case(name):
+    """(params, seed matrix, batch, masked flat, boundary validity) of an
+    EDGE_CASES entry, in cuda_case's form."""
+    params, S, batch, targets = EDGE_CASES[name]()
+    flat, starts = build_masked_flat(targets, PrefilterParams(mask=False))
+    return (params, SimpleNamespace(scores=S), batch, flat,
+            pd.target_boundary_valid(starts, batch.span))
+
+
+def _pallas_counts(batch, scores, kmer_thr, inputs, bval):
+    """_device_prep_fn + _counts_pallas of the JAX package in interpret
+    mode on the inputs' tile grid (tval checked against its prep):
+    int32 [ntt, nqt]."""
+    import jax.numpy as jnp
+    from spacepharer_tpu.ops import prefilter_dense as jpd
+    qexp, _, letters, tval, offsets = inputs
+    R, C = qexp.shape[0], tval.numel()
+    bv = np.zeros(C, dtype=bool)
+    bv[:len(bval)] = bval
+    texp_tiles, tval_tiles = jpd._device_prep_fn(
+        batch.span, offsets, kmer_thr)(
+        jnp.asarray(letters.numpy().astype(np.int32)), jnp.asarray(bv),
+        jnp.asarray(np.diag(scores)[:21].astype(np.int32)))
+    np.testing.assert_array_equal(
+        tval.numpy(), np.asarray(tval_tiles).reshape(-1).astype(np.uint8))
+    thr_col = np.full((R, 1), float(jpd.THR_INVALID), dtype=np.float32)
+    thr_col[:batch.n_rows, 0] = batch.kmer_thr
+    return np.asarray(jpd._counts_pallas(
+        jnp.asarray(jpd.build_qexp(batch, scores, R), dtype=jnp.bfloat16),
+        jnp.asarray(thr_col), texp_tiles, tval_tiles,
+        interpret=True)).reshape(C // pd.TILE_T, R // pd.TILE_Q)
+
+
 # ------------------------------------------------------------ CPU parity
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -104,31 +241,64 @@ def test_host_helpers_match_jax(seed):
 def test_plain_counts_match_pallas_interpret(seed):
     """prep + the plain counts on the JAX kernel's padded tile grid,
     against _device_prep_fn + _counts_pallas in interpret mode."""
-    import jax.numpy as jnp
-    from spacepharer_tpu.ops import prefilter_dense as jpd
     params, seed_m, _, _, batch, flat, _, bval = _case(seed)
     thr = params.kmer_threshold()
     inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores, thr, "cpu")
-    qexp, thr_t, letters, tval, offsets = inputs
-    R, C = qexp.shape[0], tval.numel()
-    bv = np.zeros(C, dtype=bool)
-    bv[:len(flat)] = bval
-    texp_tiles, tval_tiles = jpd._device_prep_fn(batch.span, offsets, thr)(
-        jnp.asarray(letters.numpy().astype(np.int32)), jnp.asarray(bv),
-        jnp.asarray(np.diag(seed_m.scores).astype(np.int32)))
-    np.testing.assert_array_equal(
-        tval.numpy(), np.asarray(tval_tiles).reshape(-1).astype(np.uint8))
-    thr_col = np.full((R, 1), float(jpd.THR_INVALID), dtype=np.float32)
-    thr_col[:batch.n_rows, 0] = batch.kmer_thr
-    want = np.asarray(jpd._counts_pallas(
-        jnp.asarray(jpd.build_qexp(batch, seed_m.scores, R),
-                    dtype=jnp.bfloat16),
-        jnp.asarray(thr_col), texp_tiles, tval_tiles,
-        interpret=True)).reshape(C // pd.TILE_T, R // pd.TILE_Q)
+    want = _pallas_counts(batch, seed_m.scores, thr, inputs, bval)
     got = pd.prefilter_dense_counts(*inputs)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert want.sum() > 0
+
+
+@pytest.mark.parametrize("name", list(EDGE_CASES))
+def test_edge_counts_match_pallas_interpret(name):
+    """The counts kernel's edge cases: the plain counts and the plain
+    counts of the compacted rows (compact_rows) equal the Pallas kernel
+    in interpret mode; match_pairs on the CPU equals the numpy oracle."""
+    params, seed_m, batch, flat, bval = edge_case(name)
+    thr = params.kmer_threshold()
+    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores, thr, "cpu")
+    want = _pallas_counts(batch, seed_m.scores, thr, inputs, bval)
+    np.testing.assert_array_equal(pd.prefilter_dense_counts(*inputs).numpy(),
+                                  want)
+    compacted = pd.compact_rows(inputs[0], inputs[1])
+    np.testing.assert_array_equal(pd.prefilter_dense_counts_compacted_plain(
+        compacted, *inputs[2:], want.shape[1]).numpy(), want)
+    assert want.sum() > 0
+    if name == "tile_fill":
+        assert (want.sum(axis=0) > 0).tolist() == ([False] + [True] * 5
+                                                   + [False])
+    got = pairs(*pd.match_pairs(batch, flat, bval, seed_m.scores, thr,
+                                device="cpu"))
+    oracle = pd.match_pairs_numpy(batch, flat, bval, seed_m.scores, thr)
+    assert got == pairs(*oracle)
+    if name == "thr762":
+        hit_rows = set(oracle[0].tolist())
+        s0 = batch.q_starts
+        assert s0[0] in hit_rows and s0[2] in hit_rows
+        assert s0[1] not in hit_rows
+
+
+def test_compact_rows_keeps_rows_that_can_match():
+    """compact_rows keeps the rows at thr <= 762 in order, with their query
+    tiles, and pads to whole row tiles with rows that never hit."""
+    qexp = torch.arange(5 * pd.TILE_Q * pd.KDIM).reshape(-1, pd.KDIM)
+    qexp = (qexp % 251 - 125).to(torch.int8)
+    thr = torch.full((5 * pd.TILE_Q,), pd.THR_INVALID, dtype=torch.int32)
+    rows = torch.tensor([0, 3, 255, 256, 700, 1279])
+    thr[rows] = torch.tensor([0, 762, 5, 1, 300, 7], dtype=torch.int32)
+    thr[9] = 763
+    qexp_c, thr_c, q_tile = pd.compact_rows(qexp, thr)
+    assert qexp_c.shape == (pd.ROW_TILE, pd.KDIM)
+    assert torch.equal(qexp_c[:6], qexp[rows])
+    assert torch.equal(qexp_c[6:], torch.zeros_like(qexp_c[6:]))
+    assert thr_c[:6].tolist() == [0, 762, 5, 1, 300, 7]
+    assert bool((thr_c[6:] == pd.THR_INVALID).all())
+    assert q_tile[:6].tolist() == [0, 0, 0, 1, 2, 4]
+    empty = pd.compact_rows(qexp, torch.full_like(thr, pd.THR_INVALID))
+    assert empty[0].shape[0] == pd.ROW_TILE
+    assert bool((empty[1] == pd.THR_INVALID).all())
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -240,12 +410,15 @@ CUDA_CASES = {f"seed{s}_mask{int(m)}": (s, m, {}) for s in (0, 1, 2)
               for m in (False, True)}
 CUDA_CASES["multichunk"] = (5, True, dict(n_targets=300, n_queries=40))
 CUDA_CASES["zero_hits"] = None
+CUDA_CASES.update(dict.fromkeys(EDGE_CASES))
 
 
 def cuda_case(name):
     """(params, seed matrix, batch, masked flat, boundary validity) of a
     CUDA_CASES entry. Every case has pad and invalid rows (the zero_hits
     query is all X)."""
+    if name in EDGE_CASES:
+        return edge_case(name)
     if name == "zero_hits":
         params = PrefilterParams(mask=False)
         seed_m = load_matrix(params.seed_matrix, 8.0)
@@ -274,6 +447,19 @@ def match_pairs_small_bounds(batch, flat, bval, scores, kmer_thr):
         pd.MAX_TILES, pd.MAX_EMIT_HITS = saved
     return got, (pd.counts_launches - before[0],
                  pd.emit_launches - before[1])
+
+
+@pytest.mark.parametrize("case", list(CUDA_CASES))
+def test_compacted_counts_equal_plain(case):
+    """The counts of the compacted rows, rebuilt through their query-tile
+    map, equal the plain counts on every `cuda` case."""
+    params, seed_m, batch, flat, bval = cuda_case(case)
+    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores,
+                             params.kmer_threshold(), "cpu")
+    want = pd.prefilter_dense_counts_plain(*inputs)
+    got = pd.prefilter_dense_counts_compacted_plain(
+        pd.compact_rows(inputs[0], inputs[1]), *inputs[2:], want.shape[1])
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

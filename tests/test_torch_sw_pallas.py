@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from spacepharer_tpu_torch.ops import sw_pallas
+from spacepharer_tpu_torch.ops import sw_packed, sw_pallas
 from spacepharer_tpu_torch.ops.align import _forward_pass
 from spacepharer_tpu_torch.ops.matrices import load_matrix
 
@@ -94,11 +94,51 @@ def _case_long_query():
     return _pack(qs, ts, 21) + (16, 2)
 
 
+def _case_target_order(order):
+    """Queries of 16 and 17 rows (exactly one stripe, just past it) and
+    others against 40 targets in ascending, descending or equal length
+    order: the kernel's sort must undo and keep each."""
+    rng = np.random.default_rng({"ascending": 21, "descending": 22,
+                                 "equal": 23}[order])
+    qs = [rng.integers(0, 20, n) for n in (16, 17, 5, 33, 1, 12)]
+    lens = (np.full(40, 37) if order == "equal"
+            else np.sort(rng.integers(1, 90, 40)))
+    if order == "descending":
+        lens = lens[::-1]
+    ts = [rng.integers(0, 21, int(n)) for n in lens]
+    return _pack(qs, ts, 21) + (16, 2)
+
+
+def _case_one_target():
+    """T = 1: one target, a query past one stripe."""
+    rng = np.random.default_rng(24)
+    qs = [rng.integers(0, 20, n) for n in (3, 16, 17, 40)]
+    return _pack(qs, [rng.integers(0, 20, 77)], 21) + (10, 1)
+
+
+def _case_letters_outside():
+    """Letters at and above A (21, 25, 31, 127, 255, 4096) and negative
+    ones (-1, -7): all score 0, none reads the pad column."""
+    rng = np.random.default_rng(25)
+    qs = [rng.integers(0, 20, n) for n in (16, 17, 9)]
+    ts = [rng.integers(0, 21, int(n)) for n in rng.integers(10, 60, 30)]
+    bad = [21, 25, 31, 127, 255, 4096, -1, -7]
+    for k, t in enumerate(ts[:8]):
+        t[rng.integers(0, len(t), 3)] = bad[k]
+    ts[8][:] = -1
+    return _pack(qs, ts, 21) + (16, 2)
+
+
 CASES = {
     "pallas_one_query": _case_one_query,
     "pallas_batch": _case_batch,
     "ragged_a32": lambda: _case_ragged(32, 16, 2),
     "ragged_a21_gap10_1": lambda: _case_ragged(21, 10, 1),
+    "targets_ascending": lambda: _case_target_order("ascending"),
+    "targets_descending": lambda: _case_target_order("descending"),
+    "targets_equal": lambda: _case_target_order("equal"),
+    "one_target": _case_one_target,
+    "letters_outside": _case_letters_outside,
 }
 CUDA_CASES = list(CASES) + ["long_query"]
 
@@ -160,6 +200,43 @@ def test_batch_plain_matches_pallas(case):
         ti = int(rng.integers(0, ref.shape[1]))
         assert got[qi, ti] == _oracle(prof, q_len, t_seqs, t_len, qi, ti,
                                       go, ge), (qi, ti)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_packed_plain_matches_pallas(case):
+    """The kernel's input layout on the CPU: pack_targets' runs (sorted
+    longest first, 16-aligned, letters outside [0, A) as A, pads as
+    A + 1) are held, and the plain scan through them (pad letters
+    scanned) and back equals the Pallas kernel in interpret mode and
+    sw_scores_batch_plain, exactly."""
+    prof, q_len, t_seqs, t_len, go, ge = CASES[case]()
+    A, T = prof.shape[2], t_seqs.shape[1]
+    args = _torch(prof, q_len, t_seqs, t_len)
+    packed = sw_pallas.pack_targets(args[2].t(), args[3], A)
+    lens = t_len.reshape(-1)
+    order = packed.order.numpy()
+    assert sorted(order.tolist()) == list(range(T))
+    np.testing.assert_array_equal(packed.lens.numpy(), lens[order])
+    assert np.all(np.diff(packed.lens.numpy()) <= 0)
+    # stable: equal lengths keep the caller's order
+    same = np.diff(packed.lens.numpy()) == 0
+    assert np.all(np.diff(order)[same] > 0)
+    off = packed.off.numpy()
+    assert np.all(off % sw_packed.T_ALIGN == 0)
+    seqs = packed.seqs.numpy()
+    for s in range(T):
+        n = int(lens[order[s]])
+        raw = t_seqs[:n, order[s]]
+        want = np.where((raw >= 0) & (raw < A), raw, A)
+        np.testing.assert_array_equal(seqs[off[s]:off[s] + n], want)
+        pad = -n % sw_packed.T_ALIGN
+        assert np.all(seqs[off[s] + n:off[s] + n + pad] == A + 1)
+
+    got = sw_pallas.sw_scores_packed(args[0], args[1], packed, go, ge)
+    np.testing.assert_array_equal(
+        got.numpy(), sw_pallas.sw_scores_batch_plain(*args, go, ge).numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), _jax_batch(prof, q_len, t_seqs, t_len, go, ge))
 
 
 @pytest.mark.parametrize("case", ["pallas_one_query", "ragged_a21_gap10_1"])
