@@ -7,9 +7,10 @@ Phase 0  requires CUDA, prints the card (nvidia-smi) and builds the
          hand-written kernels (csrc/sw_allpairs.cu, csrc/prefilter_dense.cu
          and csrc/sw_dense.cu, one nvcc each, in parallel, sm_90a),
          printing each one's registers and spills, and counts in the
-         SASS of the built libraries (cuobjdump -sass) the DPX min/max
-         opcodes of sw_dense and the integer MMA opcodes of
-         prefilter_dense.
+         SASS of the built libraries (cuobjdump -sass), per kernel
+         function, the DPX min/max opcodes of sw_dense and the integer
+         MMA opcodes of prefilter_dense; it fails if the emit kernel has
+         no IMMA.
 Phase 1  holds the SW kernel against its plain PyTorch version on the
          card, exactly, on the test corpora and on a production-shaped
          workload (the golden bundle's 305 query ORFs x 691 target ORFs,
@@ -29,13 +30,16 @@ Phase 3  builds a real-size corpus from the golden bundle and --seed
          scored is then held against the plain version on the card. It
          prints the auto gate's prefilter choice for the corpus's shape.
 Phase 4  the dense prefilter's kernels (counts and emit): (a) against
-         their plain versions, exactly, on the `cuda` cases of
-         tests/test_torch_prefilter_dense.py, and match_pairs with small
-         chunk and emit bounds against the numpy oracle; (b) at the
-         production shape (phase 3's query k-mer rows x its whole masked
-         target), exact and timed (each kernel alone, the counts on
-         its compacted rows; the counts' wrapper with the compaction and
-         the emit's with its check), with two
+         their plain versions, exactly (the emit against the plain emit
+         of all rows and of the compacted rows, as a set per tile), on
+         the `cuda` cases of tests/test_torch_prefilter_dense.py, and
+         match_pairs with small chunk and emit bounds against the numpy
+         oracle; (b) at the production shape (phase 3's query k-mer rows
+         x its whole masked target), exact and timed (each kernel alone
+         on the compacted rows, the emit also at other run caps; the
+         compaction and the emit's run starts apart; the counts' wrapper
+         with the compaction and the emit's with its run starts and
+         check), with each kernel's share of its bound and two
          of the auto gate's constants
          (the whole dense pass's cells per second, and the fixed cost of
          a dense run in a fresh process); (c) `predictmatch` through the
@@ -115,14 +119,16 @@ SMALL_SETS = 20       # random sets of phase 4(d)'s small query side
 CHECK_ROWS = 64       # query rows of phase 3's largest block checked
 P1_DUP = 20           # phase 1: golden target ORFs repeated this often
 P1_KERNEL_CALLS = 10  # phase 1: calls per timed chain, kernel ...
-P1_PLAIN_CALLS = 2    # ... and plain version
+P1_PLAIN_CALLS = 1    # ... and plain version
 P4_KERNEL_CALLS = 3   # phase 4(b): calls per timed kernel chain
 P5_KERNEL_CALLS = 5   # phase 5(b): calls per timed kernel chain
-# SASS opcodes counted in phase 0: the min/max family of sw_dense (its DPX
-# add-max and three-way max among them) and the integer MMA of
-# prefilter_dense
+# SASS opcodes counted per kernel function in phase 0: the min/max family
+# of sw_dense (its DPX add-max and three-way max among them) and the
+# integer MMA of prefilter_dense
 SASS_COUNTED = {"sw_dense": re.compile(r"MNMX"),
                 "prefilter_dense": re.compile(r"^IMMA|^LDSM")}
+# phase 4(b): emit run caps timed beside prefilter_dense.EMIT_RUN
+EMIT_RUN_SWEEP = (16, 32, 64, 128, 256)
 # the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
@@ -598,20 +604,36 @@ def _dense_tests():
     return _test_module("test_torch_prefilter_dense")
 
 
-def _hit_err(a, b, n_pos):
-    """max |a - b| over two hit lists (gi, gj) compared as sorted sets;
-    lists of different lengths fail."""
-    ka = np.sort(a[0].cpu().numpy().astype(np.int64) * n_pos
-                 + a[1].cpu().numpy())
-    kb = np.sort(b[0].cpu().numpy().astype(np.int64) * n_pos
-                 + b[1].cpu().numpy())
-    if len(ka) != len(kb):
-        raise AssertionError(f"phase4: {len(ka)} hits emitted, plain "
-                             f"has {len(kb)}")
-    if not len(ka):
+def _hit_err(a, b, tile_counts):
+    """max |a - b| over two emit outputs (gi, gj) of the same listed
+    tiles, each tile's hits compared as a sorted set; outputs of
+    different lengths fail."""
+    tile = np.repeat(np.arange(tile_counts.numel()),
+                     tile_counts.cpu().numpy())
+
+    def per_tile(out):
+        gi = out[0].cpu().numpy().astype(np.int64)
+        gj = out[1].cpu().numpy().astype(np.int64)
+        if len(gi) != len(tile):
+            raise AssertionError(f"phase4: {len(gi)} hits emitted, the "
+                                 f"counts say {len(tile)}")
+        order = np.lexsort((gj, gi, tile))
+        return np.stack([gi[order], gj[order]])
+
+    if not len(tile):
         return 0
-    return int(max(np.abs(ka // n_pos - kb // n_pos).max(),
-                   np.abs(ka % n_pos - kb % n_pos).max()))
+    return int(np.abs(per_tile(a) - per_tile(b)).max())
+
+
+def _emit_err(inputs, hit, emitted, nqt):
+    """_hit_err of an emit output against both plain versions, the plain
+    emit of all rows and that of the compacted rows."""
+    from spacepharer_tpu_torch.ops import prefilter_dense as pd
+    compacted = pd.compact_rows(inputs[0], inputs[1])
+    return max(_hit_err(emitted, pd.prefilter_dense_emit_plain(*inputs, *hit),
+                        hit[2]),
+               _hit_err(emitted, pd.prefilter_dense_emit_compacted_plain(
+                   compacted, *inputs[2:], nqt, *hit), hit[2]))
 
 
 def _dense_check(name, inputs):
@@ -622,13 +644,12 @@ def _dense_check(name, inputs):
     plain = pd.prefilter_dense_counts_plain(*inputs)
     c_err = int((counts - plain).abs().max())
     hit = pd.hit_tiles(counts)
-    e_err = _hit_err(pd.prefilter_dense_emit(*inputs, *hit),
-                     pd.prefilter_dense_emit_plain(*inputs, *hit),
-                     inputs[3].numel())
+    e_err = _emit_err(inputs, hit, pd.prefilter_dense_emit(*inputs, *hit),
+                      counts.shape[1])
     print(f"phase4 {name}: {inputs[0].shape[0]} rows x {inputs[3].numel()} "
           f"positions, {hit[3]} hits in {hit[0].numel()} tiles; "
-          f"max|counts kernel-plain| = {c_err}, emitted vs plain max err "
-          f"{e_err}")
+          f"max|counts kernel-plain| = {c_err}, emitted vs both plain "
+          f"versions max err {e_err}")
     if c_err or e_err:
         raise AssertionError(f"phase4 {name}: kernel != plain")
     return c_err, e_err, hit[3]
@@ -740,12 +761,32 @@ def phase4_production(dev, p3):
     c_err = max(int((c_kernel - c_plain).abs().max()),
                 int((c_wrapped - c_plain).abs().max()))
     hit = pd.hit_tiles(c_kernel)
-    e_k_ms, e_kernel = _kernel_ms(pd, pd.prefilter_dense_emit,
-                                  inputs + tuple(hit), P4_KERNEL_CALLS)
-    e_w_ms, _ = _chain(pd.prefilter_dense_emit, inputs, hit,
+    nqt = c_kernel.shape[-1]
+    runs_ms = _host_ms(pd.emit_runs, (hit[0], nqt, pd.EMIT_RUN),
                        P4_KERNEL_CALLS)
+    e_k_ms, e_kernel = _kernel_ms(pd, pd.prefilter_dense_emit,
+                                  inputs + tuple(hit) + (compacted,),
+                                  P4_KERNEL_CALLS)
+    e_w_ms, _ = _chain(pd.prefilter_dense_emit, inputs,
+                       tuple(hit) + (compacted,), P4_KERNEL_CALLS)
+    default_run, sweep = pd.EMIT_RUN, {}
+    try:
+        for run in EMIT_RUN_SWEEP:
+            pd.EMIT_RUN = run
+            ms, out = _kernel_ms(pd, pd.prefilter_dense_emit,
+                                 inputs + tuple(hit) + (compacted,),
+                                 P4_KERNEL_CALLS)
+            sweep[run] = (ms, out)
+    finally:
+        pd.EMIT_RUN = default_run
     e_p_ms, e_plain = _chain(pd.prefilter_dense_emit_plain, inputs, hit, 1)
-    e_err = _hit_err(e_kernel, e_plain, inputs[3].numel())
+    t0 = time.perf_counter()
+    e_cplain = pd.prefilter_dense_emit_compacted_plain(
+        compacted, *inputs[2:], nqt, *hit)
+    e_cp_ms = (time.perf_counter() - t0) * 1e3
+    e_err = max([_hit_err(e_kernel, e_cplain, hit[2])]
+                + [_hit_err(out, e_plain, hit[2])
+                   for out in [e_kernel] + [o for _, o in sweep.values()]])
     print(f"phase4 production counts: {compacted[0].shape[0]} compacted "
           f"rows; kernel alone {k_ms} ms -> {cells / (k_ms * 1e-3):.6g} "
           f"cells/s; wrapper with the row compaction {w_ms} ms (one "
@@ -753,17 +794,20 @@ def phase4_production(dev, p3):
           f"{cells / (p_ms * 1e-3):.6g} cells/s; max|kernel-plain| = "
           f"{c_err}")
     print(f"phase4 production emit: {hit[3]} hits in {hit[0].numel()} of "
-          f"{c_kernel.numel()} tiles; kernel alone {e_k_ms} ms; wrapper "
-          f"with its check {e_w_ms} ms; plain {e_p_ms} "
-          f"ms; emitted vs plain max err {e_err}")
+          f"{c_kernel.numel()} tiles; kernel alone {e_k_ms} ms at runs of "
+          f"<= {default_run} hit tiles; run starts {runs_ms:.3f} ms; "
+          f"wrapper with its run starts and check {e_w_ms} ms; plain "
+          f"{e_p_ms} ms, plain on the compacted rows {e_cp_ms:.3f} ms; "
+          f"emitted vs both plain versions max err {e_err}")
+    print("phase4 production emit alone by run cap: " + ", ".join(
+        f"{run}: {ms} ms" for run, (ms, _) in sweep.items()))
     if c_err or e_err:
         raise AssertionError("phase4 production: kernel != plain")
-    del c_plain, e_plain, c_wrapped, compacted
+    del c_plain, e_plain, e_cplain, c_wrapped, compacted, sweep
     # the bounds' work: the int8 product over the rows that can match
     # (the kernels skip the rest), over all positions for counts and over
     # the hit tiles for emit
     valid = inputs[1] <= pd.N_OFF * 127
-    nqt = c_kernel.shape[-1]
     per_qt = torch.zeros(nqt, dtype=torch.int64, device=dev).index_add_(
         0, torch.arange(valid.numel(), device=dev) // pd.TILE_Q,
         valid.long())
@@ -773,6 +817,11 @@ def phase4_production(dev, p3):
     emit_work = (in_bytes + _nbytes(*hit[:3], *e_kernel),
                  int(per_qt[hit[0] % nqt].sum()) * pd.TILE_T * 2 * pd.KDIM)
     torch.cuda.synchronize()
+    for name, ms, work in (("counts", k_ms, counts_work),
+                           ("emit", e_k_ms, emit_work)):
+        bound, bound_by = _bound(*work, INT8_OPS_PER_S)
+        print(f"phase4 production {name} share of bound: {bound:.6g} ms "
+              f"({bound_by}) / {ms} ms alone = {bound / ms:.4f}")
 
     # the gate's constants: the whole dense pass at this shape, in cells
     # as the gate counts them (query k-mers x target residues), and the
@@ -1272,9 +1321,28 @@ def phase5_entry_points(golden, tmp):
           f"({time.perf_counter() - t0:.3f} s, processes included)")
 
 
+def _kernel_name(mangled):
+    """The unqualified name of a mangled kernel function (the last name
+    of its nested name), or the name as it is where it is not mangled."""
+    m = re.match(r"_Z(N?)", mangled)
+    if not m:
+        return mangled
+    names, i = [], m.end()
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        names.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+        if not m.group(1):
+            break
+    return names[-1] if names else mangled
+
+
 def _sass_opcodes(path):
-    """Counter of the SASS opcodes in a built library (cuobjdump -sass),
-    or None where cuobjdump is missing or fails."""
+    """{kernel function: Counter of its SASS opcodes} of a built library
+    (cuobjdump -sass prints a `Function :` header per kernel), or None
+    where cuobjdump is missing or fails."""
     from torch.utils.cpp_extension import CUDA_HOME
     tool = shutil.which("cuobjdump") or os.path.join(
         CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
@@ -1288,19 +1356,26 @@ def _sass_opcodes(path):
         print(f"phase0 cuobjdump exited {proc.returncode}: "
               f"{proc.stderr[-500:]}")
         return None
-    ops = collections.Counter()
+    funcs = collections.defaultdict(collections.Counter)
+    ops = None
     for line in proc.stdout.splitlines():
+        f = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if f:
+            ops = funcs[_kernel_name(f.group(1))]
+            continue
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                      r"([A-Z][A-Z0-9_.]*)", line)
-        if m:
+        if m and ops is not None:
             ops[m.group(1)] += 1
-    return ops
+    return dict(funcs)
 
 
 def _build_all():
     """Build every kernel library at once (one nvcc each), print each
     one's ptxas registers and spills, and the counts of SASS_COUNTED's
-    opcodes. Returns {library: {opcode: count}}."""
+    opcodes per kernel function; fail unless the emit kernel runs on the
+    integer tensor cores (IMMA). Returns {library: {function: {opcode:
+    count}}}."""
     from spacepharer_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
@@ -1315,13 +1390,19 @@ def _build_all():
                 print("phase0 ptxas:", line.strip())
     sass = {}
     for name, pattern in SASS_COUNTED.items():
-        ops = _sass_opcodes(_cuda.lib_paths[name])
-        if ops is None:
+        funcs = _sass_opcodes(_cuda.lib_paths[name])
+        if funcs is None:
             continue
-        sass[name] = {op: n for op, n in sorted(ops.items())
-                      if pattern.search(op)}
-        print(f"phase0 SASS {name}: {sum(ops.values())} instructions; "
-              f"{sass[name]}")
+        sass[name] = {}
+        for func, ops in sorted(funcs.items()):
+            sass[name][func] = {op: n for op, n in sorted(ops.items())
+                                if pattern.search(op)}
+            print(f"phase0 SASS {name} {func}: {sum(ops.values())} "
+                  f"instructions; {sass[name][func]}")
+    emit = sass.get("prefilter_dense", {}).get("emit_kernel", {})
+    if not any(op.startswith("IMMA") for op in emit):
+        raise AssertionError("phase0: no IMMA in emit_kernel's SASS (or its "
+                             "SASS could not be read)")
     return sass
 
 

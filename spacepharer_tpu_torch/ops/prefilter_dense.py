@@ -30,12 +30,12 @@ selection), so the output is byte-identical to the host engine, and the
 device path needs no postings index: only the tantan-masked flat target.
 
 On the card two hand-written kernels (csrc/prefilter_dense.cu) do the
-dense work: prefilter_dense_counts counts the hits of every (target tile,
-query tile) pair (an int8 tensor-core product over the rows that can
-match, compacted by compact_rows), and prefilter_dense_emit recomputes
-only the tiles with hits and writes each hit's coordinates. Each has a
-plain PyTorch version beside it (a one-hot matmul), which the wrappers
-run on CPU tensors.
+dense work, both as an int8 tensor-core product over the rows that can
+match (compacted by compact_rows): prefilter_dense_counts counts the hits
+of every (target tile, query tile) pair, and prefilter_dense_emit
+recomputes only the tiles with hits, on their own compacted rows, and
+writes each hit's coordinates. Each has a plain PyTorch version beside it
+(a one-hot matmul), which the wrappers run on CPU tensors.
 
 What the TPU version needed and this one does not: the fixed 8192-tile
 target chunk and the power-of-two query-tile bucket (one compiled Mosaic
@@ -60,6 +60,9 @@ KDIM = 128     # Qexp columns (6 * 21 = 126 used)
 N_OFF = 6      # offsets the kernel reads (fewer: zero Qexp blocks)
 MAX_K = N_OFF * 127   # no K of an int8 Qexp exceeds this: larger thr never hit
 ROW_TILE = 128        # compacted rows per row tile of the counts kernel
+# most hit tiles of one target tile that one block of the emit kernel
+# takes (at most the kernel's kMaxRun, 256); output never depends on it
+EMIT_RUN = 64
 
 # Card-memory bounds of the kernel path; output never depends on them.
 # A query chunk holds Qexp + thr on the card (132 B per row: 138 MB at
@@ -82,7 +85,7 @@ emit_launches = 0
 cells = 0
 # None, or a list to which each counts or emit call appends a (start,
 # stop) pair of CUDA events recorded around its kernel launch alone (the
-# row compaction and the emit's check left out)
+# row compaction, the emit's run starts and its check left out)
 launch_events = None
 
 
@@ -283,11 +286,13 @@ def prefilter_dense_counts_plain(qexp, thr, letters, tval, offsets):
 
 
 def compact_rows(qexp, thr):
-    """(qexp_c int8 [Rc, KDIM], thr_c int32 [Rc], q_tile int32 [Rc]): the
-    rows that can match (thr <= MAX_K), in order, with their thresholds
-    and their query tiles (row // TILE_Q), padded to a positive multiple
-    of ROW_TILE with rows of threshold THR_INVALID (query tile 0), on
-    qexp's device. The counts kernel reads this form."""
+    """(qexp_c int8 [Rc, KDIM], thr_c int32 [Rc], q_tile int32 [Rc],
+    row_id int32 [Rc], qt_start int32 [nqt + 1]): the rows that can match
+    (thr <= MAX_K), in order, with their thresholds, their query tiles
+    (row // TILE_Q) and their row indices, padded to a positive multiple
+    of ROW_TILE with rows of threshold THR_INVALID (query tile 0, row 0);
+    query tile qt owns the compacted rows qt_start[qt] ..
+    qt_start[qt + 1] - 1. On qexp's device. The kernels read this form."""
     dev = qexp.device
     keep = torch.nonzero(thr <= MAX_K).flatten()
     n = keep.numel()
@@ -295,10 +300,16 @@ def compact_rows(qexp, thr):
     qexp_c = torch.zeros((rc, KDIM), dtype=torch.int8, device=dev)
     thr_c = torch.full((rc,), THR_INVALID, dtype=torch.int32, device=dev)
     q_tile = torch.zeros(rc, dtype=torch.int32, device=dev)
+    row_id = torch.zeros(rc, dtype=torch.int32, device=dev)
     qexp_c[:n] = qexp[keep]
     thr_c[:n] = thr[keep]
     q_tile[:n] = (keep // TILE_Q).to(torch.int32)
-    return qexp_c, thr_c, q_tile
+    row_id[:n] = keep.to(torch.int32)
+    qt_start = torch.searchsorted(
+        q_tile[:n], torch.arange(qexp.shape[0] // TILE_Q + 1,
+                                 dtype=torch.int32, device=dev),
+        out_int32=True)
+    return qexp_c, thr_c, q_tile, row_id, qt_start
 
 
 def prefilter_dense_counts_compacted_plain(compacted, letters, tval,
@@ -307,7 +318,7 @@ def prefilter_dense_counts_compacted_plain(compacted, letters, tval,
     compact_rows form: int32 [ntt, nqt], each compacted row's hits per
     target tile added into its query tile's count. Equals
     prefilter_dense_counts_plain on the rows compact_rows was given."""
-    qexp_c, thr_c, q_tile = compacted
+    qexp_c, thr_c, q_tile, _, _ = compacted
     ntt = tval.numel() // TILE_T
     out = torch.zeros((ntt, nqt), dtype=torch.int64, device=qexp_c.device)
     for c0, mask in _plain_blocks(qexp_c, thr_c, letters, tval, offsets):
@@ -343,6 +354,51 @@ def prefilter_dense_emit_plain(qexp, thr, letters, tval, offsets, tiles,
                            f"in the listed tiles, the counts say {total}")
     order = torch.sort(s, stable=True).indices
     return gi[order].to(torch.int32), gj[order].to(torch.int32)
+
+
+def prefilter_dense_emit_compacted_plain(compacted, letters, tval, offsets,
+                                         nqt: int, tiles, base, tile_counts,
+                                         total: int):
+    """Plain PyTorch version of the emit kernel on its own input, the
+    compact_rows form of nqt query tiles: (gi, gj) int32 [total], the
+    hits of the listed tiles, tile k's at base[k] .. base[k] +
+    tile_counts[k] - 1, row-major within a tile. Equals
+    prefilter_dense_emit_plain on the rows compact_rows was given."""
+    qexp_c, thr_c, q_tile, row_id, _ = compacted
+    dev = qexp_c.device
+    slot_of = torch.full(((tval.numel() // TILE_T) * nqt,), -1,
+                         dtype=torch.int64, device=dev)
+    slot_of[tiles] = torch.arange(tiles.numel(), device=dev)
+    gis, gjs, slots = [], [], []
+    for c0, mask in _plain_blocks(qexp_c, thr_c, letters, tval, offsets):
+        ci, gj = torch.nonzero(mask, as_tuple=True)
+        gj = gj + c0
+        s = slot_of[(gj // TILE_T) * nqt + q_tile[ci].long()]
+        keep = s >= 0
+        gis.append(row_id[ci[keep]].long())
+        gjs.append(gj[keep])
+        slots.append(s[keep])
+    gi, gj, s = torch.cat(gis), torch.cat(gjs), torch.cat(slots)
+    if gi.numel() != total:
+        raise RuntimeError(f"prefilter_dense_emit_compacted_plain: "
+                           f"{gi.numel()} hits in the listed tiles, the "
+                           f"counts say {total}")
+    order = torch.sort(s, stable=True).indices
+    return gi[order].to(torch.int32), gj[order].to(torch.int32)
+
+
+def emit_runs(tiles, nqt: int, max_run: int):
+    """int32 [n_runs + 1]: the emit kernel's runs of the listed tiles
+    (flat ids, ascending), each at most max_run consecutive tiles of one
+    target tile, run r being tiles run[r] .. run[r + 1] - 1; on tiles'
+    device."""
+    n = tiles.numel()
+    tt = tiles // nqt
+    # each tile's rank among the listed tiles of its target tile
+    rank = torch.arange(n, device=tiles.device) - torch.searchsorted(tt, tt)
+    starts = torch.nonzero(rank % max_run == 0).flatten()
+    return torch.cat([starts, torch.tensor([n], device=tiles.device)]).to(
+        torch.int32)
 
 
 def _check(name, x, dtype, dev):
@@ -382,6 +438,34 @@ def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
 
 
+def _checked_compacted(qexp, thr, compacted):
+    """compact_rows(qexp, thr), or `compacted` (its output for these
+    qexp and thr) after checking its layout."""
+    if compacted is None:
+        return compact_rows(qexp, thr)
+    dev = qexp.device
+    qexp_c, thr_c, q_tile, row_id, qt_start = compacted
+    for name, x, dtype in (("compacted qexp", qexp_c, torch.int8),
+                           ("compacted thr", thr_c, torch.int32),
+                           ("compacted q_tile", q_tile, torch.int32),
+                           ("compacted row_id", row_id, torch.int32),
+                           ("compacted qt_start", qt_start, torch.int32)):
+        _check(name, x, dtype, dev)
+    rc = qexp_c.shape[0]
+    if (qexp_c.dim() != 2 or qexp_c.shape[1] != KDIM or rc % ROW_TILE
+            or rc == 0 or thr_c.numel() != rc or q_tile.numel() != rc
+            or row_id.numel() != rc
+            or qt_start.numel() != qexp.shape[0] // TILE_Q + 1):
+        raise ValueError(f"prefilter_dense: compacted rows must be [Rc, "
+                         f"{KDIM}] with Rc a positive multiple of "
+                         f"{ROW_TILE}, one threshold, query tile and row "
+                         f"id each, and one start per query tile")
+    if qexp_c.data_ptr() % 16 or thr_c.data_ptr() % 16:
+        raise ValueError("prefilter_dense: compacted rows must be 16-byte "
+                         "aligned")
+    return compacted
+
+
 def prefilter_dense_counts(qexp, thr, letters, tval, offsets,
                            compacted=None):
     """int32 [ntt, nqt] hits per (target tile, query tile), the port of
@@ -400,21 +484,8 @@ def prefilter_dense_counts(qexp, thr, letters, tval, offsets,
     if dev.type != "cuda":
         raise ValueError(f"prefilter_dense_counts: unsupported device {dev}")
     _check_layout(qexp, thr, letters, tval, offs)
-    qexp_c, thr_c, q_tile = (compact_rows(qexp, thr) if compacted is None
-                             else compacted)
-    for name, x, dtype in (("compacted qexp", qexp_c, torch.int8),
-                           ("compacted thr", thr_c, torch.int32),
-                           ("compacted q_tile", q_tile, torch.int32)):
-        _check(name, x, dtype, dev)
+    qexp_c, thr_c, q_tile, _, _ = _checked_compacted(qexp, thr, compacted)
     rc = qexp_c.shape[0]
-    if (qexp_c.dim() != 2 or qexp_c.shape[1] != KDIM or rc % ROW_TILE
-            or rc == 0 or thr_c.numel() != rc or q_tile.numel() != rc):
-        raise ValueError(f"prefilter_dense: compacted rows must be [Rc, "
-                         f"{KDIM}] with Rc a positive multiple of "
-                         f"{ROW_TILE}, one threshold and query tile each")
-    if qexp_c.data_ptr() % 16 or thr_c.data_ptr() % 16:
-        raise ValueError("prefilter_dense: compacted rows must be 16-byte "
-                         "aligned")
     from ._cuda import library
     lib = library("prefilter_dense")
     if lib.prefilter_dense_row_tile() != ROW_TILE:
@@ -446,16 +517,20 @@ def prefilter_dense_counts(qexp, thr, letters, tval, offsets,
 
 
 def prefilter_dense_emit(qexp, thr, letters, tval, offsets, tiles, base,
-                         tile_counts, total: int):
+                         tile_counts, total: int, compacted=None):
     """(gi, gj) int32 [total]: row and position of every hit of the
     listed tiles, the port of the TPU path's hit extraction. tiles int64
-    [n] flat tile ids, base int64 [n] exclusive prefix sums of
-    tile_counts int32 [n] (the tiles' counts); tile k's hits land in
-    base[k] .. base[k] + tile_counts[k] - 1, in no fixed order inside it.
+    [n] flat tile ids in ascending order, base int64 [n] exclusive prefix
+    sums of tile_counts int32 [n] (the tiles' counts); tile k's hits land
+    in base[k] .. base[k] + tile_counts[k] - 1, in no fixed order inside
+    it.
 
-    On CUDA tensors this launches csrc/prefilter_dense.cu, checks that
-    every tile wrote exactly its count, and raises if the kernel cannot
-    be built or launched or the check fails; on CPU tensors it runs
+    On CUDA tensors this takes the compacted rows (compact_rows, or
+    `compacted`, as prefilter_dense_counts does), cuts the listed tiles
+    into runs of at most EMIT_RUN tiles of one target tile (emit_runs),
+    launches csrc/prefilter_dense.cu, checks that every tile wrote
+    exactly its count, and raises if the kernel cannot be built or
+    launched or the check fails; on CPU tensors it runs
     prefilter_dense_emit_plain."""
     global emit_launches
     offs = pad_offsets(offsets)
@@ -481,6 +556,12 @@ def prefilter_dense_emit(qexp, thr, letters, tval, offsets, tiles, base,
     gj = torch.empty(total, dtype=torch.int32, device=dev)
     if n == 0:
         return gi, gj
+    if not bool((tiles[1:] > tiles[:-1]).all()):
+        raise ValueError("prefilter_dense_emit: tiles must be ascending")
+    qexp_c, thr_c, _, row_id, qt_start = _checked_compacted(qexp, thr,
+                                                            compacted)
+    nqt = qexp.shape[0] // TILE_Q
+    runs = emit_runs(tiles, nqt, EMIT_RUN)
     from ._cuda import library
     lib = library("prefilter_dense")
     written = torch.empty(n, dtype=torch.int32, device=dev)
@@ -491,10 +572,11 @@ def prefilter_dense_emit(qexp, thr, letters, tval, offsets, tiles, base,
                   torch.cuda.Event(enable_timing=True))
         events[0].record(stream)
     err = lib.prefilter_dense_emit_launch(
-        _ptr(qexp), _ptr(thr), _ptr(letters), _ptr(tval),
-        (ctypes.c_int * N_OFF)(*offs), ctypes.c_int(qexp.shape[0] // TILE_Q),
-        _ptr(tiles), _ptr(base), _ptr(tile_counts), ctypes.c_int(n),
-        _ptr(gi), _ptr(gj), _ptr(written),
+        _ptr(qexp_c), _ptr(thr_c), _ptr(row_id), _ptr(qt_start),
+        _ptr(letters), _ptr(tval), (ctypes.c_int * N_OFF)(*offs),
+        ctypes.c_int(nqt), _ptr(tiles), _ptr(runs),
+        ctypes.c_int(runs.numel() - 1), ctypes.c_int(EMIT_RUN), _ptr(base),
+        _ptr(tile_counts), _ptr(gi), _ptr(gj), _ptr(written),
         ctypes.c_void_p(stream.cuda_stream))
     if err != 0:
         raise RuntimeError(f"prefilter_dense_emit kernel launch failed: "
@@ -588,7 +670,7 @@ def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
     qexp = torch.from_numpy(qexp_np).to(dev)
     thr = torch.from_numpy(thr_np).to(dev)
     nqt = qexp_np.shape[0] // TILE_Q
-    # the counts kernel's compacted rows, once for every target chunk
+    # the kernels' compacted rows, once for every target chunk
     compacted = compact_rows(qexp, thr) if dev.type == "cuda" else None
     # target chunk: MAX_TILES tiles, positions addressable in int32
     C = min(max(MAX_TILES // nqt, 1) * TILE_T, 1 << 30,
@@ -610,7 +692,7 @@ def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
             gi, gj = prefilter_dense_emit(
                 qexp, thr, letters, tval, offsets, tiles[lo:hi],
                 base[lo:hi] - start, tc[lo:hi],
-                int(ends_np[hi - 1]) - start)
+                int(ends_np[hi - 1]) - start, compacted)
             gis.append(gi.cpu().numpy().astype(np.int64))
             gjs.append(gj.cpu().numpy().astype(np.int64) + c0)
             lo = hi

@@ -69,7 +69,7 @@ _DENSE_FIXED_S = 0.641
 # ... the dense cells (query k-mers x target residues, as the gate
 # counts them) per second of the whole dense pass (prep, both kernels,
 # transfers) at the production shape of phase 4(b) ...
-_DENSE_CELLS_PER_S = 1.28926e12
+_DENSE_CELLS_PER_S = 1.13598e12
 # ... and the dense route's host work (target masking, match-stream
 # rebuild, finalize, per-key alignment and E-values in Python) per
 # query k-mer and per target residue, fitted in phase 4(d) so that the

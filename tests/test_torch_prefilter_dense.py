@@ -175,10 +175,10 @@ def edge_case(name):
             pd.target_boundary_valid(starts, batch.span))
 
 
-def _pallas_counts(batch, scores, kmer_thr, inputs, bval):
-    """_device_prep_fn + _counts_pallas of the JAX package in interpret
-    mode on the inputs' tile grid (tval checked against its prep):
-    int32 [ntt, nqt]."""
+def _jax_tiles(batch, scores, kmer_thr, inputs, bval):
+    """The JAX package's device inputs on the inputs' tile grid: (qexp
+    bf16 [R, KDIM], thr [R, 1], and _device_prep_fn's Texp and tval
+    tiles, tval checked against the port's prep)."""
     import jax.numpy as jnp
     from spacepharer_tpu.ops import prefilter_dense as jpd
     qexp, _, letters, tval, offsets = inputs
@@ -193,9 +193,17 @@ def _pallas_counts(batch, scores, kmer_thr, inputs, bval):
         tval.numpy(), np.asarray(tval_tiles).reshape(-1).astype(np.uint8))
     thr_col = np.full((R, 1), float(jpd.THR_INVALID), dtype=np.float32)
     thr_col[:batch.n_rows, 0] = batch.kmer_thr
+    return (jnp.asarray(jpd.build_qexp(batch, scores, R), dtype=jnp.bfloat16),
+            jnp.asarray(thr_col), texp_tiles, tval_tiles)
+
+
+def _pallas_counts(batch, scores, kmer_thr, inputs, bval):
+    """_device_prep_fn + _counts_pallas of the JAX package in interpret
+    mode on the inputs' tile grid: int32 [ntt, nqt]."""
+    from spacepharer_tpu.ops import prefilter_dense as jpd
+    R, C = inputs[0].shape[0], inputs[3].numel()
     return np.asarray(jpd._counts_pallas(
-        jnp.asarray(jpd.build_qexp(batch, scores, R), dtype=jnp.bfloat16),
-        jnp.asarray(thr_col), texp_tiles, tval_tiles,
+        *_jax_tiles(batch, scores, kmer_thr, inputs, bval),
         interpret=True)).reshape(C // pd.TILE_T, R // pd.TILE_Q)
 
 
@@ -282,23 +290,30 @@ def test_edge_counts_match_pallas_interpret(name):
 
 def test_compact_rows_keeps_rows_that_can_match():
     """compact_rows keeps the rows at thr <= 762 in order, with their query
-    tiles, and pads to whole row tiles with rows that never hit."""
+    tiles and row ids, and each query tile's first compacted row, and pads
+    to whole row tiles with rows that never hit."""
     qexp = torch.arange(5 * pd.TILE_Q * pd.KDIM).reshape(-1, pd.KDIM)
     qexp = (qexp % 251 - 125).to(torch.int8)
     thr = torch.full((5 * pd.TILE_Q,), pd.THR_INVALID, dtype=torch.int32)
     rows = torch.tensor([0, 3, 255, 256, 700, 1279])
     thr[rows] = torch.tensor([0, 762, 5, 1, 300, 7], dtype=torch.int32)
     thr[9] = 763
-    qexp_c, thr_c, q_tile = pd.compact_rows(qexp, thr)
+    qexp_c, thr_c, q_tile, row_id, qt_start = pd.compact_rows(qexp, thr)
     assert qexp_c.shape == (pd.ROW_TILE, pd.KDIM)
     assert torch.equal(qexp_c[:6], qexp[rows])
     assert torch.equal(qexp_c[6:], torch.zeros_like(qexp_c[6:]))
     assert thr_c[:6].tolist() == [0, 762, 5, 1, 300, 7]
     assert bool((thr_c[6:] == pd.THR_INVALID).all())
     assert q_tile[:6].tolist() == [0, 0, 0, 1, 2, 4]
+    assert bool((q_tile[6:] == 0).all())
+    assert row_id.dtype == qt_start.dtype == torch.int32
+    assert row_id[:6].tolist() == rows.tolist()
+    assert bool((row_id[6:] == 0).all())
+    assert qt_start.tolist() == [0, 3, 4, 5, 5, 6]
     empty = pd.compact_rows(qexp, torch.full_like(thr, pd.THR_INVALID))
     assert empty[0].shape[0] == pd.ROW_TILE
     assert bool((empty[1] == pd.THR_INVALID).all())
+    assert empty[4].tolist() == [0] * 6
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -390,6 +405,21 @@ def test_plain_emit_places_hits_at_tile_bases():
                                       int(ends[-1]) + 1)
 
 
+@pytest.mark.parametrize("max_run", [1, 2, 3, 64])
+def test_emit_runs_cut_target_tiles(max_run):
+    """emit_runs cuts the listed tiles into runs of at most max_run
+    consecutive tiles of one target tile, as few as that allows."""
+    nqt = 4
+    tiles = torch.tensor([0, 1, 2, 3, 5, 9, 10, 11, 13, 14])
+    runs = pd.emit_runs(tiles, nqt, max_run)
+    assert runs.dtype == torch.int32
+    want = [0]
+    for lo, hi in ((0, 4), (4, 5), (5, 8), (8, 10)):   # target tiles 0-3
+        want += list(range(lo + max_run, hi, max_run)) + [hi]
+    assert runs.tolist() == want
+    assert pd.emit_runs(tiles[:0], nqt, max_run).tolist() == [0]
+
+
 def test_invalid_inputs_raise():
     params, seed_m, _, _, batch, flat, _, bval = _case(0)
     bad = flat.copy()
@@ -433,6 +463,14 @@ def cuda_case(name):
     return params, seed_m, batch, flat, bval
 
 
+def tile_sets(gi, gj, tile_counts):
+    """Sorted (tile index, gi, gj) triples of an emit's output: its hits
+    as a set per listed tile."""
+    k = torch.repeat_interleave(torch.arange(tile_counts.numel()),
+                                tile_counts.cpu().long())
+    return sorted(zip(k.tolist(), gi.cpu().tolist(), gj.cpu().tolist()))
+
+
 def match_pairs_small_bounds(batch, flat, bval, scores, kmer_thr):
     """match_pairs on the card with 3-tile target chunks and emit
     launches of at most 17 hits, so that it walks several of each: its
@@ -462,12 +500,78 @@ def test_compacted_counts_equal_plain(case):
     assert torch.equal(got, want)
 
 
+def listed_tiles(counts, listing):
+    """The emit pass's (tiles, base, tile_counts, total) for the tiles of
+    `listing`: "hit" every tile with hits (hit_tiles), "every" every tile
+    of the grid (those without hits at 0 slots), "alternate" every other
+    tile with hits."""
+    if listing == "hit":
+        return pd.hit_tiles(counts)
+    flat = counts.flatten()
+    tiles = torch.arange(flat.numel(), device=counts.device)
+    if listing == "alternate":
+        tiles = torch.nonzero(flat).flatten()[::2]
+    tc = flat[tiles]
+    return (tiles, torch.cumsum(tc, 0, dtype=torch.int64) - tc, tc,
+            int(tc.sum()))
+
+
+@pytest.mark.parametrize("listing", ["every", "alternate"])
+@pytest.mark.parametrize("case", list(CUDA_CASES))
+def test_compacted_emit_equals_plain(case, listing):
+    """The plain emit of the compacted rows equals the plain emit of all
+    rows exactly (hits row-major in each tile at its base) on every `cuda`
+    case, with every tile of the grid listed and with every other hit
+    tile listed."""
+    params, seed_m, batch, flat, bval = cuda_case(case)
+    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores,
+                             params.kmer_threshold(), "cpu")
+    counts = pd.prefilter_dense_counts_plain(*inputs)
+    hit = listed_tiles(counts, listing)
+    want = pd.prefilter_dense_emit_plain(*inputs, *hit)
+    got = pd.prefilter_dense_emit_compacted_plain(
+        pd.compact_rows(inputs[0], inputs[1]), *inputs[2:], counts.shape[1],
+        *hit)
+    assert got[0].dtype == got[1].dtype == torch.int32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (hit[3] == 0) == (case == "zero_hits")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_compacted_emit_matches_jax_extract(seed):
+    """The plain emit of the compacted rows against np.nonzero of the JAX
+    package's hit masks (_extract_fn, a plain jit) on the same hit tiles,
+    in tile order and row-major inside each."""
+    import jax.numpy as jnp
+    from spacepharer_tpu.ops import prefilter_dense as jpd
+    params, seed_m, _, _, batch, flat, _, bval = _case(seed)
+    thr = params.kmer_threshold()
+    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores, thr, "cpu")
+    counts = pd.prefilter_dense_counts_plain(*inputs)
+    nqt = counts.shape[1]
+    tiles, base, tc, total = pd.hit_tiles(counts)
+    qt = (tiles % nqt).numpy().astype(np.int32)
+    tt = (tiles // nqt).numpy().astype(np.int32)
+    masks = np.asarray(jpd._extract_fn(len(qt))(
+        *_jax_tiles(batch, seed_m.scores, thr, inputs, bval),
+        jnp.asarray(qt), jnp.asarray(tt)))
+    b, ii, jj = np.nonzero(masks)
+    gi, gj = pd.prefilter_dense_emit_compacted_plain(
+        pd.compact_rows(inputs[0], inputs[1]), *inputs[2:], nqt, tiles, base,
+        tc, total)
+    np.testing.assert_array_equal(gi.numpy(), qt[b] * pd.TILE_Q + ii)
+    np.testing.assert_array_equal(gj.numpy(), tt[b] * pd.TILE_T + jj)
+    assert total > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CUDA_CASES))
-def test_cuda_kernels_match_plain(case):
+def test_cuda_kernels_match_plain(case, monkeypatch):
     """Counts and emitted hits of the kernels equal the plain versions on
-    the same card tensors; match_pairs on the card, walking several
-    target chunks and emit launches, equals the numpy oracle."""
+    the same card tensors (the emit as a set per tile, also at runs of 1
+    and 2 hit tiles, and with every tile of the grid listed); match_pairs
+    on the card, walking several target chunks and emit launches, equals
+    the numpy oracle."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
     params, seed_m, batch, flat, bval = cuda_case(case)
@@ -477,13 +581,24 @@ def test_cuda_kernels_match_plain(case):
     counts = pd.prefilter_dense_counts(*inputs)
     torch.testing.assert_close(counts, pd.prefilter_dense_counts_plain(
         *inputs), rtol=0, atol=0)
-    hit = pd.hit_tiles(counts)
-    gi, gj = pd.prefilter_dense_emit(*inputs, *hit)
-    pgi, pgj = pd.prefilter_dense_emit_plain(*inputs, *hit)
-    assert pairs(gi.cpu(), gj.cpu()) == pairs(pgi.cpu(), pgj.cpu())
+    compacted = pd.compact_rows(inputs[0], inputs[1])
+    runs = (pd.EMIT_RUN, 1, 2)
+    for listing in ("hit", "every"):
+        hit = listed_tiles(counts, listing)
+        want = tile_sets(*pd.prefilter_dense_emit_plain(*inputs, *hit), hit[2])
+        assert want == tile_sets(*pd.prefilter_dense_emit_compacted_plain(
+            compacted, *inputs[2:], counts.shape[1], *hit), hit[2])
+        for run in runs:
+            monkeypatch.setattr(pd, "EMIT_RUN", run)
+            gi, gj = pd.prefilter_dense_emit(*inputs, *hit, compacted)
+            assert tile_sets(gi, gj, hit[2]) == want, (listing, run)
     assert (hit[3] == 0) == (case == "zero_hits")
     assert pd.counts_launches - before[0] == 1
-    assert pd.emit_launches - before[1] == (1 if hit[3] else 0)
+    assert pd.emit_launches - before[1] == 3 * (2 if hit[3] else 1)
+    if hit[0].numel() > 1:
+        with pytest.raises(ValueError, match="ascending"):
+            pd.prefilter_dense_emit(*inputs, hit[0].flip(0), *hit[1:],
+                                    compacted)
 
     got, _ = match_pairs_small_bounds(batch, flat, bval, seed_m.scores, thr)
     assert got == pairs(*pd.match_pairs_numpy(batch, flat, bval,
