@@ -71,6 +71,24 @@ Phase 5  the device mesh (--shards) and its dense SW kernels B3 (one
          (c) and (d), the slice's main path. B3 has no product caller (nor
          has its TPU kernel): it is held in (a) and (b) and reports 0
          launches there.
+Phase 6  the product surface as a user runs it, through the launcher
+         bin/spacepharer_torch: (a) the golden run's inputs written back
+         as files (three gzipped genome FASTAs, two spacer files) and
+         createsetdb plain and with --reverse-fragments 1, each in a fresh
+         process; (b) easy-predict with the auto gates in a fresh process
+         (the prefilter and scoring engines the gates picked are
+         printed), then in this process with --use-tpu 1 (B1 must launch)
+         and with --prefilter-engine device --use-tpu 0 (both B2 kernels
+         must launch), each giving the golden result.tsv byte for byte;
+         (c) B2 counts and emit on each dense search's own inputs from
+         (b) (the golden query k-mer rows x the golden masked target),
+         exact against both plain versions; (d) searchnucl on
+         tests/blastn_fixtures.tar.gz's fix, fix2 and fix3 in fresh
+         processes, each giving the reference binary's ref.m8 byte for
+         byte; (e) each run's wall and the phase's own beside the card's
+         name and power limit. Its launches are printed on a line of
+         their own and are not the kernel report's (the main path's); (c)
+         adds to the report's max errors of B2.
 
 Each kernel's entry in the report carries its bound: the larger of its
 bytes (every input read once, every output written once) over 3.35 TB/s
@@ -89,6 +107,7 @@ import collections
 import concurrent.futures
 import contextlib
 import glob
+import gzip
 import io
 import json
 import os
@@ -111,6 +130,8 @@ KERNELS = {   # library name -> (source, the TPU kernel it replaces)
     "sw_dense": ("spacepharer_tpu_torch/csrc/sw_dense.cu",
                  "spacepharer_tpu/ops/sw_pallas.py:124"),
 }
+LAUNCHER = os.path.join(REPO, "bin", "spacepharer_torch")
+BLASTN_FIXTURES = ("fix", "fix2", "fix3")   # tests/blastn_fixtures.tar.gz
 EMIT_REPLACES = "spacepharer_tpu/ops/prefilter_dense.py:228"
 ONE_QUERY_REPLACES = "spacepharer_tpu/ops/sw_pallas.py:35"
 COPIES = 100          # mutated copies of each golden genome (phase 3)
@@ -636,22 +657,26 @@ def _emit_err(inputs, hit, emitted, nqt):
                    compacted, *inputs[2:], nqt, *hit), hit[2]))
 
 
-def _dense_check(name, inputs):
-    """Counts and emitted hits of one chunk, kernel vs plain on the same
-    card tensors. Returns (counts error, emit error, hits)."""
+def _dense_check(name, inputs, where="phase4"):
+    """Counts and emitted hits of one chunk, kernel vs both plain versions
+    (all rows, and the compacted rows) on the same card tensors. Returns
+    (counts error, emit error, hits)."""
     from spacepharer_tpu_torch.ops import prefilter_dense as pd
     counts = pd.prefilter_dense_counts(*inputs)
-    plain = pd.prefilter_dense_counts_plain(*inputs)
-    c_err = int((counts - plain).abs().max())
+    nqt = counts.shape[1]
+    c_err = max(int((counts - plain).abs().max()) for plain in (
+        pd.prefilter_dense_counts_plain(*inputs),
+        pd.prefilter_dense_counts_compacted_plain(
+            pd.compact_rows(inputs[0], inputs[1]), *inputs[2:], nqt)))
     hit = pd.hit_tiles(counts)
     e_err = _emit_err(inputs, hit, pd.prefilter_dense_emit(*inputs, *hit),
-                      counts.shape[1])
-    print(f"phase4 {name}: {inputs[0].shape[0]} rows x {inputs[3].numel()} "
-          f"positions, {hit[3]} hits in {hit[0].numel()} tiles; "
-          f"max|counts kernel-plain| = {c_err}, emitted vs both plain "
-          f"versions max err {e_err}")
+                      nqt)
+    print(f"{where} {name}: {inputs[0].shape[0]} rows x "
+          f"{inputs[3].numel()} positions, {hit[3]} hits in "
+          f"{hit[0].numel()} tiles; counts vs both plain versions max err "
+          f"{c_err}, emitted vs both plain versions max err {e_err}")
     if c_err or e_err:
-        raise AssertionError(f"phase4 {name}: kernel != plain")
+        raise AssertionError(f"{where} {name}: kernel != plain")
     return c_err, e_err, hit[3]
 
 
@@ -1321,6 +1346,174 @@ def phase5_entry_points(golden, tmp):
           f"({time.perf_counter() - t0:.3f} s, processes included)")
 
 
+# ---------------------------------------------------------------- phase 6
+
+def write_sets(db, dest, opener):
+    """One FASTA per set of db, named after the set, with its contigs'
+    headers and sequences (the tests rebuild the golden inputs so too)."""
+    for s, name in enumerate(db.set_names):
+        with opener(os.path.join(dest, name), "wb") as fh:
+            for c in range(db.n_contigs):
+                if db.contig_to_set[c] == s:
+                    fh.write(b">" + db.contig_header[c].encode() + b"\n"
+                             + db.contig_seq(c).tobytes() + b"\n")
+
+
+def write_keyed_targets(fix):
+    """<fix>/t_keyed.fasta: a blastn fixture's t.fasta in the reference
+    createdb's key order (tdb.lookup), which duplicate-target tie-breaks
+    follow; returns its path."""
+    from spacepharer_tpu_torch.io.fasta import iter_fasta
+    entries = {e.name: e for e in iter_fasta(os.path.join(fix, "t.fasta"))}
+    path = os.path.join(fix, "t_keyed.fasta")
+    with open(os.path.join(fix, "tdb.lookup")) as fh, \
+            open(path, "wb") as out:
+        for ln in fh:
+            e = entries[ln.split("\t")[1]]
+            out.write(b">" + e.header.encode() + b"\n" + e.seq.tobytes()
+                      + b"\n")
+    return path
+
+
+def _launcher(args, cwd, what):
+    """bin/spacepharer_torch in a fresh process, on this interpreter:
+    (wall s, stdout, stderr); fails on a non-zero exit."""
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable)
+               + os.pathsep + os.environ.get("PATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([LAUNCHER] + args, cwd=cwd, env=env,
+                          capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase6 {what} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    return wall, proc.stdout, proc.stderr
+
+
+def _same_bytes(path, ref, what):
+    with open(path, "rb") as fh, open(ref, "rb") as gh:
+        if fh.read() != gh.read():
+            raise AssertionError(f"phase6 {what}: {path} differs from {ref}")
+
+
+def phase6(dev, golden, tmp, smi):
+    """The product surface through the launcher, (a) to (e) of the
+    module's docstring; smi is the card's name and power limit. Returns
+    the max errors of B2 counts and emit at the golden shape."""
+    import torch
+    from spacepharer_tpu_torch.io.setdb import SetDB
+    from spacepharer_tpu_torch.ops import prefilter_dense as pd
+    from spacepharer_tpu_torch.ops import sw_packed
+    t_phase = time.perf_counter()
+    base = os.path.join(tmp, "p6")
+    fa = os.path.join(base, "inputs")
+    os.makedirs(fa)
+    write_sets(SetDB.load(os.path.join(golden, "targets")), fa, gzip.open)
+    qdb = SetDB.load(_golden_query_path(golden))
+    write_sets(qdb, fa, open)
+    genomes = sorted(os.path.join(fa, f) for f in os.listdir(fa)
+                     if f.startswith("GCA_"))
+    spacers = [os.path.join(fa, name) for name in qdb.set_names]
+    gold = os.path.join(golden, "result.tsv")
+    walls = {}
+    for name, extra in (("targets", []),
+                        ("targets_rev", ["--reverse-fragments", "1"])):
+        walls[f"createsetdb {name}"] = _launcher(
+            ["createsetdb", *genomes, name, "tmp", *extra], base,
+            f"createsetdb {name}")[0]
+
+    walls["easy-predict auto"], out, err = _launcher(
+        ["easy-predict", *spacers, "targets", "auto.tsv", "tmp_auto"], base,
+        "easy-predict (auto gates)")
+    _same_bytes(os.path.join(base, "auto.tsv"), gold, "easy-predict auto")
+    engines = [ln.strip() for ln in (out + err).splitlines()
+               if "scoring engine" in ln]
+    dense = any("dense device prefilter" in ln
+                for ln in (out + err).splitlines())
+    print(f"phase6 easy-predict with the auto gates (fresh process): golden "
+          f"bytes; prefilter {'dense (B2)' if dense else 'host walk'}; "
+          f"scoring: {engines}")
+
+    # the dense route's match_pairs inputs, as the product path gives
+    # them, for (c)'s check of B2 at this shape
+    recorded, match_pairs = [], pd.match_pairs
+
+    def recording(*a, **kw):
+        recorded.append(a)
+        return match_pairs(*a, **kw)
+
+    launches = {}
+    pd.match_pairs = recording
+    try:
+        for label, flags in (("use-tpu 1", ["--use-tpu", "1"]),
+                             ("dense", ["--prefilter-engine", "device",
+                                        "--use-tpu", "0"])):
+            before = (sw_packed.launches, pd.counts_launches,
+                      pd.emit_launches)
+            out_tsv = os.path.join(base, f"{label.replace(' ', '_')}.tsv")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):
+                rc = _cli(["easy-predict", *spacers,
+                           os.path.join(base, "targets"), out_tsv,
+                           os.path.join(base,
+                                        f"tmp_{label.replace(' ', '_')}"),
+                           "-v", "1", *flags])
+            walls[f"easy-predict {label}"] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"phase6 easy-predict {label} exited "
+                                     f"{rc}")
+            _same_bytes(out_tsv, gold, f"easy-predict {label}")
+            launches[label] = {
+                name: now - was for name, now, was in zip(
+                    ("sw_allpairs", "prefilter_dense_counts",
+                     "prefilter_dense_emit"),
+                    (sw_packed.launches, pd.counts_launches,
+                     pd.emit_launches),
+                    before)}
+    finally:
+        pd.match_pairs = match_pairs
+    print(f"phase6 launches (easy-predict in this process; not in the "
+          f"kernel report): {launches}")
+    if launches["use-tpu 1"]["sw_allpairs"] <= 0:
+        raise AssertionError("phase6: easy-predict --use-tpu 1 never "
+                             "launched sw_allpairs")
+    if min(launches["dense"]["prefilter_dense_counts"],
+           launches["dense"]["prefilter_dense_emit"]) <= 0:
+        raise AssertionError("phase6: easy-predict --prefilter-engine "
+                             "device never launched both B2 kernels")
+
+    # (c) B2 counts and emit on each dense search's own inputs (the
+    # golden query k-mer rows x the golden masked target, its ragged
+    # last tile included), kernel vs both plain versions
+    if len(recorded) != launches["dense"]["prefilter_dense_counts"]:
+        raise AssertionError(f"phase6: {len(recorded)} dense searches, "
+                             f"{launches['dense']} launches")
+    errs = [0, 0]
+    for i, args in enumerate(recorded):
+        c_err, e_err, _ = _dense_check(f"golden dense search {i}",
+                                       pd.dense_inputs(*args, dev), "phase6")
+        errs = [max(errs[0], c_err), max(errs[1], e_err)]
+    torch.cuda.synchronize()
+
+    blastn = os.path.join(base, "blastn")
+    with tarfile.open(os.path.join(REPO, "tests",
+                                   "blastn_fixtures.tar.gz")) as tf:
+        tf.extractall(blastn, filter="fully_trusted")   # the repo's own
+    for name in BLASTN_FIXTURES:
+        fix = os.path.join(blastn, name)
+        write_keyed_targets(fix)
+        walls[f"searchnucl {name}"] = _launcher(
+            ["searchnucl", "q.fasta", "t_keyed.fasta", "out.m8"], fix,
+            f"searchnucl {name}")[0]
+        _same_bytes(os.path.join(fix, "out.m8"),
+                    os.path.join(fix, "ref.m8"), f"searchnucl {name}")
+    print(f"phase6 searchnucl {list(BLASTN_FIXTURES)}: ref.m8 byte for byte")
+    print("phase6 walls s: " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in walls.items())
+          + f"; phase 6 in all {time.perf_counter() - t_phase:.3f} ({smi})")
+    return errs
+
+
 def _kernel_name(mangled):
     """The unqualified name of a mangled kernel function (the last name
     of its nested name), or the name as it is where it is not mangled."""
@@ -1486,6 +1679,7 @@ def main():
         p5_launches = {"sw_dense_one_query": sw_pallas.one_query_launches,
                        "sw_dense_batch": sw_pallas.batch_launches}
         phase5_entry_points(golden, tmp)
+        p6_errs = phase6(dev, golden, tmp, smi)
     print(smi)
     sw_src, sw_replaces = KERNELS["sw_allpairs"]
     pd_src, pd_replaces = KERNELS["prefilter_dense"]
@@ -1504,7 +1698,8 @@ def main():
         bound, bound_by = _bound(*p4["work"][part], INT8_OPS_PER_S)
         report.append({"name": name, "route": "cuda", "source": pd_src,
                        "replaces": replaces, "launches": p4_launches[name],
-                       "max_abs_err": max(case_errs[i], err), "ms": ms,
+                       "max_abs_err": max(case_errs[i], err, p6_errs[i]),
+                       "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": bound_by, "library_ms": None})
     for name, replaces, key, case_err, extra_err in (

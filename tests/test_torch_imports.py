@@ -26,6 +26,8 @@ def test_port_imports_no_jax():
         "import spacepharer_tpu_torch.parallel.sharding\n"
         "import spacepharer_tpu_torch.parallel.distributed\n"
         "import spacepharer_tpu_torch.graft_entry\n"
+        "import spacepharer_tpu_torch.ops.nucl_prefilter\n"
+        "import spacepharer_tpu_torch.pipeline.searchnucl\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'spacepharer_tpu'))\n"
         "assert 'torch' in sys.modules\n"
@@ -66,9 +68,11 @@ VERBATIM = [
     "io/setdb.py", "io/spacer_formats.py",
     "native/banded_native.c", "native/tantan_native.c",
     "ops/align.py", "ops/banded_nucl.py", "ops/bias.py", "ops/evalue.py",
-    "ops/matrices.py", "ops/orf.py", "ops/prefilter.py", "ops/rescore.py",
+    "ops/matrices.py", "ops/nucl_prefilter.py", "ops/orf.py",
+    "ops/prefilter.py", "ops/rescore.py",
     "ops/revcodon.py", "ops/tantan.py", "ops/translate.py",
-    "pipeline/downloaddb.py", "pipeline/workflow.py",
+    "pipeline/downloaddb.py", "pipeline/searchnucl.py",
+    "pipeline/workflow.py",
     "report/convert.py", "report/nuclaln.py", "report/offsets.py",
     "report/pam.py", "report/summarize.py",
     "stats/aggregation.py", "stats/fdr.py",
