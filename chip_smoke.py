@@ -26,9 +26,18 @@ Phase 3  builds a real-size corpus from the golden bundle and --seed
          runs it) and with the GPU scoring engine forced on and the host
          prefilter (in this process, so the kernel's launches are
          counted), each on its own copy of the DBs; both texts must
-         agree. A sample of query rows of the largest block the kernel
-         scored is then held against the plain version on the card. It
-         prints the auto gate's prefilter choice for the corpus's shape.
+         agree, and the GPU run's _search_tpu prints where its time goes
+         (bias, scoring, E-value screen, survivor alignment). A sample of
+         query rows of the largest block the kernel scored is then held
+         against the plain version on the card. It prints the auto gate's
+         prefilter choice for the corpus's shape. (b) fits the auto gates'
+         host terms on the card's host: the host walk's postings build
+         and k-mer walk (GATE_RUNS fresh processes, medians), and the
+         scoring gate's break-even in candidate cells from the search
+         stage of the GPU and host engines under `auto` (the gate forced
+         each way, the host prefilter), GATE_RUNS alternating fresh runs
+         each at phase 3's corpus and at its query side GATE_COPIES times
+         over, texts equal; then the mesh route in a fresh process.
 Phase 4  the dense prefilter's kernels (counts and emit): (a) against
          their plain versions, exactly (the emit against the plain emit
          of all rows and of the compacted rows, as a set per tile), on
@@ -46,11 +55,13 @@ Phase 4  the dense prefilter's kernels (counts and emit): (a) against
          CLI on phase 3's corpus (its own DB copy) with
          --prefilter-engine device --use-tpu 0, in this process so that
          the launches are counted, whose text must equal phase 3's
-         host-engine text with both kernels launched; (d) the dense and
-         host routes in fresh processes, as a user runs them, at two
-         shapes (phase 3's corpus, and its first SMALL_SETS spacer sets
-         against the same target), their texts equal, and the gate's
-         host-work terms fitted to the two walls' differences.
+         host-engine text with both kernels launched, with where the
+         route's time goes (the dense pass, hits_to_streams, finalize,
+         alignment); (d) the dense and host routes in fresh processes, as
+         a user runs them, at two shapes (phase 3's corpus, and its first
+         SMALL_SETS spacer sets against the same target), their texts
+         equal, and the gate's host-work terms fitted to the two walls'
+         differences with (b)'s host walk terms.
 Phase 5  the device mesh (--shards) and its dense SW kernels B3 (one
          query) and B4 (a query batch), csrc/sw_dense.cu: (a) both against
          their plain versions, exactly, on the `cuda` cases of
@@ -62,8 +73,9 @@ Phase 5  the device mesh (--shards) and its dense SW kernels B3 (one
          through the CLI with --shards 2,4, golden bytes; (d) phase 3's
          corpus (its own DB copy) through the CLI with --shards 2,4
          --use-tpu 1 --prefilter-engine host, in this process, whose text
-         must equal the host engine's, with where its time goes and a
-         sample of its largest block held against the plain version; (e)
+         must equal the host engine's, with where its time goes (_search_tpu
+         split as in phase 3) and a sample of its largest block held
+         against the plain version; (e)
          graft_entry.dryrun_multichip(8) on the golden DBs and
          distributed_search_pipeline over NCCL at world size
          torch.cuda.device_count() (one process per card), both against
@@ -137,7 +149,9 @@ ONE_QUERY_REPLACES = "spacepharer_tpu/ops/sw_pallas.py:35"
 COPIES = 100          # mutated copies of each golden genome (phase 3)
 SETS = 2000           # random spacer sets added to the golden ones
 SMALL_SETS = 20       # random sets of phase 4(d)'s small query side
-CHECK_ROWS = 64       # query rows of phase 3's largest block checked
+CHECK_ROWS = 16       # query rows of phase 3's largest block checked
+GATE_COPIES = 3       # phase 3(b): copies of the query side, second shape
+GATE_RUNS = 3         # phase 3(b): alternating runs per shape and engine
 P1_DUP = 20           # phase 1: golden target ORFs repeated this often
 P1_KERNEL_CALLS = 10  # phase 1: calls per timed chain, kernel ...
 P1_PLAIN_CALLS = 1    # ... and plain version
@@ -323,17 +337,19 @@ def phase1(dev, golden):
         raise AssertionError("phase1 production: kernel != plain")
     cells = int(np.diff(qo).sum()) * int(np.diff(to).sum()) * P1_DUP
     # turns: plain, kernel, kernel, plain; the kernel alone (CUDA events
-    # around its launches) and the wrapper's chain each time
-    plain_ms = [_chain_ms(sw_packed.sw_allpairs_plain, args, 16, 2,
-                          P1_PLAIN_CALLS)]
+    # around its launches) and the wrapper's chain each time. The check
+    # above warmed the plain version at this shape, so its turns time
+    # one call each and no warm-up call.
+    plain_ms = [_chain_out(sw_packed.sw_allpairs_plain, args, 16, 2,
+                           P1_PLAIN_CALLS, warm=False)[0]]
     kernel_ms, chain_ms = [], []
     for _ in range(2):
         kernel_ms.append(_kernel_ms(sw_packed, sw_packed.sw_allpairs,
                                     args + (16, 2), P1_KERNEL_CALLS)[0])
         chain_ms.append(_chain_ms(sw_packed.sw_allpairs, args, 16, 2,
                                   P1_KERNEL_CALLS))
-    plain_ms.append(_chain_ms(sw_packed.sw_allpairs_plain, args, 16, 2,
-                              P1_PLAIN_CALLS))
+    plain_ms.append(_chain_out(sw_packed.sw_allpairs_plain, args, 16, 2,
+                               P1_PLAIN_CALLS, warm=False)[0])
     k_ms, p_ms = min(kernel_ms), min(plain_ms)
     print(f"phase1 timing: {cells} true cells per call; kernel alone ms "
           f"{kernel_ms} -> {cells / (k_ms * 1e-3):.6g} cells/s; wrapper "
@@ -401,8 +417,8 @@ def build_corpus(golden, tmp, seed):
     SMALL_SETS random sets; saved once per run under tmp/<run>/ (a search
     persists its target index or masked target beside the DBs). Returns
     {run: [query, targets, targets_rev]} for the runs host, gpu, dense,
-    dense_fresh and mesh (the whole query side) and host_small and
-    dense_small."""
+    dense_fresh and mesh (the whole query side), gate (never searched:
+    phase 3(b) copies it) and host_small and dense_small."""
     from spacepharer_tpu_torch.io.setdb import (SetDB, build_setdb_from_fasta,
                                                 build_setdb_from_spacers)
     from spacepharer_tpu_torch.io.spacer_formats import SpacerRecord
@@ -445,7 +461,7 @@ def build_corpus(golden, tmp, seed):
         [r for r in records if r.file_idx < n_small], names[:n_small])
     paths = {}
     for run, q in (("host", qdb), ("gpu", qdb), ("dense", qdb),
-                   ("dense_fresh", qdb), ("mesh", qdb),
+                   ("dense_fresh", qdb), ("mesh", qdb), ("gate", qdb),
                    ("host_small", qsmall),
                    ("dense_small", qsmall)):
         paths[run] = []
@@ -536,11 +552,11 @@ def phase3(dev, golden, tmp, seed):
                            out=out)
         return out
 
-    def _counted(keys, t_aa, cand, q_all, *a, **kw):
-        cand_cells.append(sum(len(q_all[k]) * sum(len(t_aa[t])
-                                                  for t in cand[k])
-                              for k in keys))
-        return search_tpu(keys, t_aa, cand, q_all, *a, **kw)
+    def _counted(keys, t_aa, t_packed, cand, q_all, *a, **kw):
+        q_lens = np.array([len(q_all[k]) for k in keys], dtype=np.int64)
+        cand_cells.append(int(np.dot(np.repeat(q_lens, np.diff(cand[1])),
+                                     np.diff(t_packed[1])[cand[0]])))
+        return search_tpu(keys, t_aa, t_packed, cand, q_all, *a, **kw)
 
     gpu_out = os.path.join(base, "gpu.tsv")
     pm._search_tpu = _counted
@@ -548,9 +564,11 @@ def phase3(dev, golden, tmp, seed):
     sw_packed.launches = 0
     sw_packed.cells = 0
     before = timings()
+    split = {}
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stderr(io.StringIO()):
+        with contextlib.redirect_stderr(io.StringIO()), \
+                _timed_calls(split, _search_tpu_split(pm)):
             rc = _cli(["predictmatch", *paths["gpu"], gpu_out,
                        os.path.join(base, "tmp_gpu"), "--use-tpu", "1",
                        "--prefilter-engine", "host", "-v", "1"])
@@ -574,6 +592,7 @@ def phase3(dev, golden, tmp, seed):
           f"search_rev {after.get('search_rev', 0) - before.get('search_rev', 0):.3f} s); "
           f"candidate cells {cand_cells}; dense cells on the card {dense}; "
           f"kernel launches {launches}")
+    print("phase3 GPU engine " + _split_line(split))
     print(f"phase3 texts identical={host_text == gpu_text}, "
           f"{len(gpu_text)} bytes, {n_hits} hit lines")
     if host_text != gpu_text:
@@ -584,7 +603,50 @@ def phase3(dev, golden, tmp, seed):
     _print_gate(paths["host"])
     return {"launches": launches, "host_wall": host_wall,
             "gpu_wall": gpu_wall, "dense_cells": dense, "max_abs_err": err,
-            "base": base, "paths": paths, "host_text": host_text}
+            "base": base, "paths": paths, "host_text": host_text,
+            "cand_cells": cand_cells}
+
+
+@contextlib.contextmanager
+def _timed_calls(spent, targets):
+    """Wrap each (module, name, key) of targets so that its calls add
+    their seconds to spent[key]; the originals come back on exit."""
+    orig = []
+    for mod, name, key in targets:
+        fn = getattr(mod, name)
+        orig.append((mod, name, fn))
+
+        def run(*a, _fn=fn, _key=key, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                spent[_key] = spent.get(_key, 0.0) + time.perf_counter() - t
+        setattr(mod, name, run)
+    try:
+        yield spent
+    finally:
+        for mod, name, fn in reversed(orig):
+            setattr(mod, name, fn)
+
+
+def _search_tpu_split(pm):
+    """_search_tpu and its four steps, for _timed_calls."""
+    return ((pm, "_search_tpu", "_search_tpu"),
+            (pm, "_query_bias_i8", "bias"),
+            (pm, "_candidate_scores", "scoring"),
+            (pm, "_evalue_screen", "screen"),
+            (pm, "_align_survivors", "survivor alignment"))
+
+
+def _split_line(split):
+    """'_search_tpu T s over both searches: bias b s, ...' of a split."""
+    total = split.get("_search_tpu", 0.0)
+    parts = [(k, split.get(k, 0.0)) for k in
+             ("bias", "scoring", "screen", "survivor alignment")]
+    return (f"_search_tpu {total:.3f} s over both searches: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in parts)
+            + f", the rest {total - sum(v for _, v in parts):.3f} s")
 
 
 def _gate_shape(paths):
@@ -606,6 +668,203 @@ def _print_gate(paths):
     viable = pm.dense_prefilter_viable(nk, t_res, has_idx=False)
     print(f"phase3 auto prefilter gate for {nk} k-mers x {t_res} target "
           f"residues (fresh index): {'dense' if viable else 'host'}")
+
+
+def host_walk_probe(query, targets):
+    """Print, as JSON, the host batch walk's two costs in this fresh
+    process: the postings build of the target (no persisted index) and
+    the native walk of every query k-mer, in search_setdbs' chunks."""
+    from spacepharer_tpu_torch.io.setdb import SetDB
+    from spacepharer_tpu_torch.ops.matrices import load_matrix
+    from spacepharer_tpu_torch.ops.prefilter import (PrefilterParams,
+                                                     build_target_index,
+                                                     prefilter_query_batch)
+    from spacepharer_tpu_torch.pipeline import predictmatch as pm
+    params = PrefilterParams()
+    t_flat, t_off = SetDB.load(targets).orf_aa_encoded()
+    t_aa = [t_flat[t_off[i]:t_off[i + 1]] for i in range(len(t_off) - 1)]
+    q_flat, q_off = SetDB.load(query).orf_aa_encoded()
+    q_all = [q_flat[q_off[i]:q_off[i + 1]] for i in range(len(q_off) - 1)]
+    seed_m = load_matrix(params.seed_matrix, 8.0)
+    ungapped_m = load_matrix(params.ungapped_matrix, 2.0)
+    t0 = time.perf_counter()
+    index = build_target_index(t_aa, params, packed=(t_flat, t_off))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for lo in range(0, len(q_all), pm._BATCH_CHUNK):
+        hi = min(lo + pm._BATCH_CHUNK, len(q_all))
+        prefilter_query_batch(q_all[lo:hi], index, params, seed_m,
+                              ungapped_m, packed=(q_flat, q_off[lo:hi + 1]),
+                              as_arrays=True)
+    walk_s = time.perf_counter() - t0
+    nk = int(np.maximum(np.diff(q_off) - params.pattern_span + 1, 0).sum())
+    print(json.dumps({"t_res": int(t_off[-1]), "build_s": build_s,
+                      "nk": nk, "walk_s": walk_s}))
+
+
+def auto_run(threshold, argv):
+    """The CLI with `auto` engine gates, the scoring gate's threshold set
+    to `threshold` candidate cells (0: the GPU engine for every search
+    with candidates; 1e30: the host engine). The control search forks
+    onto the host engine either way, as under `auto` in the product."""
+    from spacepharer_tpu_torch import cli
+    from spacepharer_tpu_torch.pipeline import predictmatch as pm
+    pm._DEVICE_CELLS_THRESHOLD = threshold
+    return cli.main(argv)
+
+
+def _gate_queries(src, dest, copies):
+    """Save at dest the query SetDB at src with each spacer set repeated
+    `copies` times (copy c's sets and spacers renamed with a c suffix):
+    every search does the same work `copies` times over."""
+    from spacepharer_tpu_torch.io.setdb import SetDB, build_setdb_from_spacers
+    from spacepharer_tpu_torch.io.spacer_formats import SpacerRecord
+    q = SetDB.load(src)
+    names = list(q.set_names)
+    records, all_names = [], []
+    for c in range(copies):
+        all_names += [f"c{c}_{n}" for n in names]
+        records += [SpacerRecord(f"{q.contig_header[i]}_c{c}",
+                                 f"{q.contig_accession[i]}_c{c}",
+                                 q.contig_seq(i).tobytes(),
+                                 int(q.contig_to_set[i]) + c * len(names))
+                    for i in range(q.n_contigs)]
+    build_setdb_from_spacers(records, all_names).save(dest)
+
+
+def _forced_run(src, dest, engine, *flags):
+    """predictmatch in a fresh process on a fresh copy (src copied to
+    dest: no persisted index, no cached stage) with `auto` gates and the
+    host prefilter, the scoring engine forced to engine ("gpu" or
+    "host") through auto_run: (wall s, search stage s, text, the engine
+    the search took)."""
+    shutil.copytree(src, dest)
+    argv = ["predictmatch", *(os.path.join(dest, n) for n in
+                              ("query", "targets", "targets_rev")),
+            os.path.join(dest, "result.tsv"), os.path.join(dest, "tmp"),
+            "--prefilter-engine", "host", *flags]
+    code = (f"import sys, chip_smoke; sys.exit(chip_smoke.auto_run("
+            f"{0.0 if engine == 'gpu' else 1e30!r}, {argv!r}))")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{dest} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    search = re.search(r"Time for search: ([0-9.]+)s", proc.stdout)
+    took = re.findall(r"-> (\w+) scoring engine", proc.stderr)
+    with open(os.path.join(dest, "result.tsv")) as fh:
+        text = fh.read()
+    shutil.rmtree(dest)
+    return wall, float(search.group(1)), text, took
+
+
+def phase3_gates(p3):
+    """(b): the auto gates' host terms and the scoring engine's
+    break-even, on the card's host. The host walk's postings build and
+    k-mer walk in GATE_RUNS fresh processes (medians); then the search
+    stage of the GPU engine and of the host engine, both under `auto`
+    with the host prefilter (each forks its control search onto the
+    host), GATE_RUNS alternating fresh runs per engine at two shapes:
+    phase 3's corpus and its query side GATE_COPIES times over (the
+    same target), on fresh DB copies. Every text must equal the first
+    host text of its shape. The break-even is where the two engines'
+    lines through the medians cross, in candidate cells."""
+    from spacepharer_tpu_torch.pipeline import predictmatch as pm
+    base = os.path.join(p3["base"], "gates")
+    pristine = {1: p3["paths"]["gate"][0].rsplit(os.sep, 1)[0]}
+    big = os.path.join(base, f"x{GATE_COPIES}")
+    shutil.copytree(pristine[1], big, ignore=shutil.ignore_patterns("query"))
+    _gate_queries(os.path.join(pristine[1], "query"),
+                  os.path.join(big, "query"), GATE_COPIES)
+    pristine[GATE_COPIES] = big
+
+    probes = []
+    for _ in range(GATE_RUNS):
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.host_walk_probe("
+             f"{p3['paths']['gate'][0]!r}, {p3['paths']['gate'][1]!r})"],
+            cwd=REPO, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase3 host walk probe exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        probes.append(json.loads(proc.stdout.splitlines()[-1]))
+    per_res = float(np.median([p["build_s"] / p["t_res"] for p in probes]))
+    per_kmer = float(np.median([p["walk_s"] / p["nk"] for p in probes]))
+    print(f"phase3 host walk, {GATE_RUNS} fresh processes "
+          f"({probes[0]['t_res']} residues, {probes[0]['nk']} k-mers): "
+          f"postings build s {[round(p['build_s'], 3) for p in probes]}, "
+          f"walk s {[round(p['walk_s'], 3) for p in probes]}; fit "
+          f"_HOST_POSTINGS_S_PER_RES {per_res:.6g} (in the code "
+          f"{pm._HOST_POSTINGS_S_PER_RES:.6g}), _HOST_WALK_S_PER_KMER "
+          f"{per_kmer:.6g} (in the code {pm._HOST_WALK_S_PER_KMER:.6g})")
+
+    proc = subprocess.run(
+        [sys.executable, "-c", "import time; t0 = time.perf_counter(); "
+         "import torch; t1 = time.perf_counter(); "
+         "torch.zeros(1, device='cuda'); torch.cuda.synchronize(); "
+         "print(t1 - t0, time.perf_counter() - t1)"],
+        cwd=REPO, capture_output=True, text=True, check=True)
+    imp, ctx = (float(v) for v in proc.stdout.split())
+    print(f"phase3 a fresh process's first touch of the card: import torch "
+          f"{imp:.3f} s, then a CUDA context and one tensor on the card "
+          f"{ctx:.3f} s")
+
+    cells_1 = p3["cand_cells"][0]
+    runs = {(c, e): [] for c in pristine for e in ("gpu", "host")}
+    texts = {}
+    for rep in range(GATE_RUNS):
+        for copies, src in pristine.items():
+            order = ("gpu", "host") if rep % 2 == 0 else ("host", "gpu")
+            for engine in order:
+                wall, search, text, took = _forced_run(
+                    src, os.path.join(base, f"x{copies}_{engine}_{rep}"),
+                    engine)
+                want = "device" if engine == "gpu" else "host"
+                if not took or took[0] != want:
+                    raise AssertionError(f"phase3 gate run x{copies} "
+                                         f"{engine}: engine {took}")
+                if texts.setdefault(copies, text) != text:
+                    raise AssertionError(f"phase3 gate run x{copies} "
+                                         f"{engine}: text differs")
+                runs[(copies, engine)].append((wall, search))
+    if texts[1] != p3["host_text"]:
+        raise AssertionError("phase3 gate runs: text differs from phase 3's")
+    med = {}
+    for (copies, engine), rr in runs.items():
+        med[(copies, engine)] = float(np.median([r[1] for r in rr]))
+        print(f"phase3 gate x{copies} ({copies * cells_1} candidate cells) "
+              f"{engine} engine: search s "
+              f"{[round(r[1], 3) for r in rr]}, walls s "
+              f"{[round(r[0], 3) for r in rr]}; median search "
+              f"{med[(copies, engine)]:.3f} s")
+    c0, c1 = cells_1, GATE_COPIES * cells_1
+    lines = {}
+    for engine in ("gpu", "host"):
+        slope = (med[(GATE_COPIES, engine)] - med[(1, engine)]) / (c1 - c0)
+        lines[engine] = (med[(1, engine)] - slope * c0, slope)
+    (ag, bg), (ah, bh) = lines["gpu"], lines["host"]
+    cross = (ag - ah) / (bh - bg) if bh != bg else float("inf")
+    wins = [med[(c, "gpu")] < med[(c, "host")] for c in pristine]
+    print(f"phase3 gate fit: search s = a + b x cells, GPU engine a "
+          f"{ag:.6g} b {bg:.6g}, host engine a {ah:.6g} b {bh:.6g}; the "
+          f"lines cross at {cross:.6g} candidate cells (the GPU engine "
+          f"{'faster' if bh > bg else 'slower'} per cell); the GPU engine "
+          f"won at {sum(wins)} of {len(wins)} shapes; _DEVICE_CELLS_THRESHOLD"
+          f" in the code {pm._DEVICE_CELLS_THRESHOLD:.6g}")
+
+    # the mesh route in a fresh process at phase 3's shape, beside them
+    wall, search, text, took = _forced_run(
+        pristine[1], os.path.join(base, "x1_mesh"), "gpu", "--shards", "2,4",
+        "--use-tpu", "1")
+    if text != p3["host_text"]:
+        raise AssertionError("phase3 mesh fresh run: text differs")
+    print(f"phase3 mesh route (--shards 2,4 --use-tpu 1) in a fresh "
+          f"process at phase 3's shape: wall {wall:.3f} s, search "
+          f"{search:.3f} s (both searches in this process)")
+    return {"post_s_per_res": per_res, "walk_s_per_kmer": per_kmer}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -893,6 +1152,7 @@ def phase4_predictmatch(p3, tmp):
     CUDA is initialised in this process, so the control search is not
     forked: both searches run here, one after the other, through B2."""
     from spacepharer_tpu_torch.logging import timings
+    from spacepharer_tpu_torch.ops import align, prefilter
     from spacepharer_tpu_torch.ops import prefilter_dense as pd
     out = os.path.join(tmp, "p4", "dense.tsv")
     os.makedirs(os.path.dirname(out))
@@ -908,9 +1168,14 @@ def phase4_predictmatch(p3, tmp):
     pd.match_pairs = _timed
     pd.counts_launches = pd.emit_launches = pd.cells = 0
     before = timings()
+    split = {}
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stderr(io.StringIO()):
+        with contextlib.redirect_stderr(io.StringIO()), _timed_calls(split, (
+                (pd, "device_prefilter", "device_prefilter"),
+                (pd, "hits_to_streams", "hits_to_streams"),
+                (prefilter, "_finalize_native", "finalize"),
+                (align, "align_query_batch", "alignment"))):
             rc = _cli(["predictmatch", *p3["paths"]["dense"], out,
                        os.path.join(tmp, "p4", "tmp"), "--prefilter-engine",
                        "device", "--use-tpu", "0", "-v", "1"])
@@ -932,6 +1197,14 @@ def phase4_predictmatch(p3, tmp):
           f"s; dense passes {pass_s}); launches {launches}; dense cells on "
           f"the card {pd.cells}; text identical to the host engine's: "
           f"{same}")
+    dp = split.get("device_prefilter", 0.0)
+    parts = (("the dense pass", sum(pass_s)),
+             ("hits_to_streams", split.get("hits_to_streams", 0.0)),
+             ("finalize", split.get("finalize", 0.0)))
+    print(f"phase4 dense route split over both searches: device_prefilter "
+          f"{dp:.3f} s (" + ", ".join(f"{k} {v:.3f} s" for k, v in parts)
+          + f", the rest {dp - sum(v for _, v in parts):.3f} s); alignment "
+          f"(align_query_batch) {split.get('alignment', 0.0):.3f} s")
     if not same:
         raise AssertionError("phase4: dense-prefilter text differs from "
                              "the host engine's")
@@ -940,7 +1213,7 @@ def phase4_predictmatch(p3, tmp):
     return launches
 
 
-def phase4_routes(p3, p4):
+def phase4_routes(p3, p4, walk):
     """(d): the dense and host routes in fresh processes, as a user runs
     them (each forks its control search onto the host engine), at phase
     3's shape and at its small query side against the same target; the
@@ -948,7 +1221,7 @@ def phase4_routes(p3, p4):
     route (per query k-mer, per target residue) so that its estimate of
     dense less host seconds equals the measured difference of the walls
     at both shapes, given (b)'s fixed cost and cell rate and the host
-    walk's constants.
+    walk's terms that phase 3(b) measured (`walk`).
 
     The small query side runs with --fdr 0: at the default 0.05 the FDR
     step of the shared host code (stats/fdr.py) indexes past its score
@@ -977,14 +1250,19 @@ def phase4_routes(p3, p4):
         if text != host_text:
             raise AssertionError(f"phase4 {label}: dense and host routes' "
                                  f"texts differ")
-        x.append(wall - host_wall + t_res * pm._HOST_POSTINGS_S_PER_RES
-                 + nk * pm._HOST_WALK_S_PER_KMER - p4["fixed_s"]
+        x.append(wall - host_wall + t_res * walk["post_s_per_res"]
+                 + nk * walk["walk_s_per_kmer"] - p4["fixed_s"]
                  - nk * t_res / p4["cells_per_s"])
         nks.append(nk)
     per_kmer = (x[0] - x[1]) / (nks[0] - nks[1])
     per_res = (x[1] - per_kmer * nks[1]) / t_res
     print(f"phase4 gate fit: host work of the dense route {per_kmer:.6g} s "
-          f"per query k-mer, {per_res:.6g} s per target residue")
+          f"per query k-mer (_DENSE_HOST_S_PER_KMER in the code "
+          f"{pm._DENSE_HOST_S_PER_KMER:.6g}), {per_res:.6g} s per target "
+          f"residue (_DENSE_HOST_S_PER_RES in the code "
+          f"{pm._DENSE_HOST_S_PER_RES:.6g}); with phase 3(b)'s host walk "
+          f"terms, phase 4(b)'s cell rate {p4['cells_per_s']:.6g} and fixed "
+          f"cost {p4['fixed_s']:.3f} s")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1185,9 +1463,10 @@ def phase5_corpus(dev, p3, tmp, seed):
     """(d): phase 3's corpus through the CLI with --shards 2,4 --use-tpu 1
     --prefilter-engine host in this process: its text must equal the
     host engine's. Times packing, shard scoring and the whole mesh
-    scoring inside _search_tpu; the rest of _search_tpu is bias and
-    survivor realignment. CUDA is initialised, so both searches run here
-    one after the other, as in phase 3's GPU run."""
+    scoring inside _search_tpu, and _search_tpu's four steps (bias,
+    scoring, E-value screen, survivor alignment). CUDA is initialised,
+    so both searches run here one after the other, as in phase 3's GPU
+    run."""
     import torch
     from spacepharer_tpu_torch.logging import timings
     from spacepharer_tpu_torch.ops import sw_pallas as sp
@@ -1234,8 +1513,10 @@ def phase5_corpus(dev, p3, tmp, seed):
     out = os.path.join(p3["base"], "mesh.tsv")
     before = timings()
     t0 = time.perf_counter()
+    split = {}
     try:
-        with contextlib.redirect_stderr(io.StringIO()):
+        with contextlib.redirect_stderr(io.StringIO()), \
+                _timed_calls(split, _search_tpu_split(pm)):
             rc = _cli(["predictmatch", *p3["paths"]["mesh"], out,
                        os.path.join(p3["base"], "tmp_mesh"), "--shards",
                        "2,4", "--use-tpu", "1", "--prefilter-engine", "host",
@@ -1261,11 +1542,12 @@ def phase5_corpus(dev, p3, tmp, seed):
           f"target packing on the card, once per target block, "
           f"{spent['dpack']:.3f} s, B4 launches to a synchronise "
           f"{spent['score']:.3f} s, the rest uploads, downloads and "
-          f"padding), bias + survivor realignment + the rest "
-          f"{spent['search_tpu'] - spent['mesh']:.3f} s; over (c) and "
+          f"padding), the rest {spent['search_tpu'] - spent['mesh']:.3f} "
+          f"s; over (c) and "
           f"(d): B4 launches {sp.batch_launches}, B3 launches "
           f"{sp.one_query_launches}, true cells {sp.cells}; text "
           f"identical to the host engine's: {same}")
+    print("phase5 mesh route " + _split_line(split))
     if not same:
         raise AssertionError("phase5: mesh text differs from the host "
                              "engine's")
@@ -1665,10 +1947,11 @@ def main():
         p1 = phase1(dev, golden)
         phase2(golden, tmp)
         p3 = phase3(dev, golden, tmp, args.seed)
+        walk = phase3_gates(p3)
         case_errs = phase4_cases(dev)
         p4 = phase4_production(dev, p3)
         p4_launches = phase4_predictmatch(p3, tmp)
-        phase4_routes(p3, p4)
+        phase4_routes(p3, p4, walk)
         p5_errs = phase5_cases(dev)
         p5 = phase5_production(dev, golden, p1, clock_hz)
         # the slice's main path: the mesh route through the CLI

@@ -708,6 +708,51 @@ def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
 # reference-order stream reconstruction + finalize
 # ---------------------------------------------------------------------------
 
+# distinct query halves whose rank tables hits_to_streams gathers from
+# at once: 2,048 x 8,000 int16 = 32 MB
+RANK_CHUNK = 2048
+# bits of hits_to_streams' one sort key (row, rank 1, rank 2, target);
+# wider keys sort lexicographically instead
+KEY_BITS = 63
+
+
+def _half_ranks(batch, gi, codes, enumerator):
+    """(r1, r2): for every hit, the rank of its target half-codes
+    `codes` (two [n] arrays) in the enumeration order of its query
+    row's two halves, from enumerator.half_rank's cached tables. Each
+    row's halves are coded once (letters in base 21, X included), and
+    the tables of the halves that occur are stacked RANK_CHUNK at a
+    time."""
+    half = enumerator.half
+    base = X_IDX + 1
+    rows = np.arange(batch.n_rows)
+    letters = batch.q_flat[rows[:, None] + np.asarray(batch.offsets)[None, :]]
+    hid = []
+    for h in range(2):
+        code = np.zeros(batch.n_rows, dtype=np.int64)
+        for j in range(half):
+            code = code * base + letters[:, h * half + j]
+        hid.append(code[gi])
+    present = np.zeros(base ** half, dtype=bool)
+    present[hid[0]] = True
+    present[hid[1]] = True
+    uniq = np.flatnonzero(present)
+    slot = np.zeros(base ** half, dtype=np.int64)
+    slot[uniq] = np.arange(len(uniq))
+    tris = np.stack([uniq // base ** (half - 1 - j) % base
+                     for j in range(half)], axis=1)
+    ranks = [np.empty(len(gi), dtype=np.int64) for _ in range(2)]
+    sids = [slot[h] for h in hid]
+    for lo in range(0, len(uniq), RANK_CHUNK):
+        hi = min(lo + RANK_CHUNK, len(uniq))
+        tabs = np.stack([enumerator.half_rank(tri) for tri in tris[lo:hi]]
+                        ).astype(np.int16)
+        for sid, code, r in zip(sids, codes, ranks):
+            sel = (sid >= lo) & (sid < hi)
+            r[sel] = tabs[sid[sel] - lo, code[sel]]
+    return ranks
+
+
 def hits_to_streams(batch: QueryKmerBatch, gi, gj, t_flat, t_starts,
                     enumerator) -> dict:
     """Map (gi, gj) pairs to per-query (m_t, m_d) match streams in the
@@ -715,51 +760,50 @@ def hits_to_streams(batch: QueryKmerBatch, gi, gj, t_flat, t_starts,
     KmerGenerator enumeration order — (half-1 rank, half-2 rank) under
     each half-list's (score desc, code asc) sort (KmerGenerator.cpp:
     186-) — then target sequence ascending; one entry per (code, seq)
-    at its first target position (IndexTable.h:341- unique-insert)."""
-    offsets = batch.offsets
-    half = enumerator.half
-    out = {}
-    if len(gi) == 0:
-        return {k: (np.zeros(0, np.int64), np.zeros(0, np.int64))
-                for k in batch.keys}
-    order = np.argsort(gi, kind="stable")
-    gi = gi[order]
-    gj = gj[order]
-    t_seq = np.searchsorted(t_starts, gj, side="right") - 1
+    at its first target position (IndexTable.h:341- unique-insert).
+
+    One sort over every hit of the batch: the query row gi orders keys
+    and k-mer positions at once, so (gi, rank 1, rank 2, target) is the
+    sort key; each run of one key keeps its first target position, and
+    the streams split by key."""
+    offsets = np.asarray(batch.offsets)
+    t_starts = np.asarray(t_starts, dtype=np.int64)
+    gi = np.asarray(gi, dtype=np.int64)
+    gj = np.asarray(gj, dtype=np.int64)
+    n_seqs = len(t_starts) - 1
+    seq_of = np.repeat(np.arange(n_seqs, dtype=np.int64), np.diff(t_starts))
+    t_seq = seq_of[gj]
     t_pos = gj - t_starts[t_seq]
     letters = t_flat[gj[:, None] + offsets[None, :]].astype(np.int64)
     c1 = letters[:, 0] * 400 + letters[:, 1] * 20 + letters[:, 2]
     c2 = letters[:, 3] * 400 + letters[:, 4] * 20 + letters[:, 5]
-    bounds = np.searchsorted(gi, batch.q_starts)
-    for ki, k in enumerate(batch.keys):
-        lo, hi = bounds[ki], bounds[ki + 1]
-        if lo == hi:
-            out[k] = (np.zeros(0, np.int64), np.zeros(0, np.int64))
-            continue
-        i_local = gi[lo:hi] - batch.q_starts[ki]
-        s1 = t_seq[lo:hi]
-        p1 = t_pos[lo:hi]
-        cc1 = c1[lo:hi]
-        cc2 = c2[lo:hi]
-        r1 = np.empty(hi - lo, dtype=np.int64)
-        r2 = np.empty(hi - lo, dtype=np.int64)
-        qf = batch.q_flat
-        for i in np.unique(i_local):
-            sel = i_local == i
-            g0 = int(batch.q_starts[ki] + i)
-            kl = qf[g0 + offsets].astype(np.int64)
-            r1[sel] = enumerator.half_rank(kl[:half])[cc1[sel]]
-            r2[sel] = enumerator.half_rank(kl[half:])[cc2[sel]]
-        srt = np.lexsort((p1, s1, r2, r1, i_local))
-        i_s, r1_s, r2_s, seq_s, pos_s = (i_local[srt], r1[srt], r2[srt],
-                                         s1[srt], p1[srt])
+    r1, r2 = _half_ranks(batch, gi, (c1, c2), enumerator)
+    n_half = enumerator.n_half
+    row_code = (gi * n_half + r1) * n_half + r2
+    seq_bits = max(n_seqs - 1, 1).bit_length()
+    if (int(row_code.max(initial=0)).bit_length() + seq_bits) <= KEY_BITS:
+        key = (row_code << seq_bits) | t_seq
+        srt = np.argsort(key)
+        key = key[srt]
         first = np.ones(len(srt), dtype=bool)
-        first[1:] = ((i_s[1:] != i_s[:-1]) | (r1_s[1:] != r1_s[:-1])
-                     | (r2_s[1:] != r2_s[:-1]) | (seq_s[1:] != seq_s[:-1]))
-        m_t = seq_s[first]
-        m_d = (i_s[first] - pos_s[first]) & 0xFFFF
-        out[k] = (m_t, m_d)
-    return out
+        first[1:] = key[1:] != key[:-1]
+        runs = np.flatnonzero(first)
+        pos = (np.minimum.reduceat(t_pos[srt], runs) if len(runs)
+               else t_pos[:0])
+        gi, m_t = gi[srt][runs], t_seq[srt][runs]
+    else:
+        srt = np.lexsort((t_pos, t_seq, row_code))
+        row_code, t_seq = row_code[srt], t_seq[srt]
+        first = np.ones(len(srt), dtype=bool)
+        first[1:] = ((row_code[1:] != row_code[:-1])
+                     | (t_seq[1:] != t_seq[:-1]))
+        gi, m_t, pos = gi[srt][first], t_seq[first], t_pos[srt][first]
+    q_starts = np.asarray(batch.q_starts)
+    key_of = np.searchsorted(q_starts, gi, side="right") - 1
+    m_d = (gi - q_starts[key_of] - pos) & 0xFFFF
+    bounds = np.searchsorted(key_of, np.arange(len(batch.keys) + 1))
+    return {k: (m_t[bounds[i]:bounds[i + 1]], m_d[bounds[i]:bounds[i + 1]])
+            for i, k in enumerate(batch.keys)}
 
 
 def device_prefilter(q_all, keys, bias80_all, t_flat_masked, t_starts,

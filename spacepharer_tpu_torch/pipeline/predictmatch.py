@@ -63,32 +63,36 @@ _worker_fn = None
 
 # Dense-prefilter cost model, measured by chip_smoke.py phase 4 on an
 # NVIDIA H100 80GB HBM3 at a 700 W power limit: the fixed cost
-# of a dense run in a fresh process (CUDA context, kernel library load,
-# first launches; the one-time nvcc build left out) ...
-_DENSE_FIXED_S = 0.641
+# of a dense run in a fresh process from an imported torch (CUDA
+# context, kernel library load, first launches; the one-time nvcc build
+# left out; phase 4(b): 0.714 s) ...
+_DENSE_FIXED_S = 0.714
 # ... the dense cells (query k-mers x target residues, as the gate
 # counts them) per second of the whole dense pass (prep, both kernels,
-# transfers) at the production shape of phase 4(b) ...
-_DENSE_CELLS_PER_S = 1.13598e12
-# ... and the dense route's host work (target masking, match-stream
-# rebuild, finalize, per-key alignment and E-values in Python) per
-# query k-mer and per target residue, fitted in phase 4(d) so that the
-# model's dense less host seconds equals the measured difference of the
-# two routes' fresh-process walls at two shapes: the phase-3 corpus
-# (94,223 k-mers: 30.3 s dense, 6.8 s host) and its small query side
-# (2,149 k-mers: 13.3 s dense, 4.2 s host), both x 6,919,175 residues.
-# Beyond those residues the model is an extrapolation. Both terms exceed
-# the host walk's own (below), so the gate picks the host walk at every
-# shape until the dense route's host work is batched (ROADMAP).
-_DENSE_HOST_S_PER_KMER = 1.66964e-4
-_DENSE_HOST_S_PER_RES = 1.5328e-6
+# transfers) at the production shape of phase 4(b) (94,223 k-mers x
+# 6,919,175 residues in 0.479 s) ...
+_DENSE_CELLS_PER_S = 1.36178e12
+# ... and the dense route's host work (import torch, target masking,
+# match-stream rebuild, per-key finalize, batched alignment) per query
+# k-mer and per target residue, fitted in phase 4(d) so that the model's
+# dense less host seconds equals the measured difference of the two
+# routes' fresh-process walls at two shapes, given phase 3(b)'s host walk
+# terms below: the phase-3 corpus (94,223 k-mers: 17.188 s dense, 8.791 s
+# host) and its small query side (2,149 k-mers: 8.918 s dense, 2.927 s
+# host), both x 6,919,175 residues. Beyond those residues the model is an
+# extrapolation. Both terms exceed the host walk's own, so the gate
+# picks the host walk at every shape.
+_DENSE_HOST_S_PER_KMER = 5.09701e-5
+_DENSE_HOST_S_PER_RES = 8.28207e-7
 
-# Host batch-walk cost model (native prefilter_batch, measured on the
-# CPU of the JAX package's TPU host, not re-measured on the card's
-# host): fresh postings build ~0.35 s per 1e6 target residues
-# (first-touch dominated), plus ~20 us per query k-mer for the walk.
-_HOST_POSTINGS_S_PER_RES = 0.35e-6
-_HOST_WALK_S_PER_KMER = 20e-6
+# Host batch-walk cost model (native prefilter_batch), measured by
+# chip_smoke.py phase 3(b) on the host of an NVIDIA H100 80GB HBM3 (700 W
+# power limit), medians of three fresh processes: the postings build of
+# the phase-3 target (0.510, 0.499, 0.551 s for 6,919,175 residues; no
+# persisted index) and the walk of its 94,223 query k-mers (2.819, 2.693,
+# 2.976 s).
+_HOST_POSTINGS_S_PER_RES = 7.37629e-8
+_HOST_WALK_S_PER_KMER = 2.99165e-5
 
 
 def dense_prefilter_viable(nk_total: int, t_res: int, has_idx: bool) -> bool:
@@ -400,8 +404,7 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
         if use_dev_pf:
             from ..ops.prefilter_dense import device_prefilter
             # the kernels on a card, their plain versions on the CPU; the
-            # hits come back as host data, so the forked align workers
-            # below never touch CUDA
+            # hits come back as host data
             device = "cuda" if _accelerator_present() else "cpu"
             log(2, f"dense device prefilter ({device}): "
                    f"{nk_total} k-mers x {t_res} target residues")
@@ -409,43 +412,39 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
                 q_all, keys, _get_bias80(), masked[0], masked[1],
                 params.prefilter, enumerator, seed_m, ungapped_m,
                 device=device)
-            cand = {k: [h.target for h in hits_all[k]] for k in keys}
+            cand_chunks = _keyed_chunks(
+                keys, {k: [h.target for h in hits_all[k]] for k in keys})
         elif use_batch:
             cand_chunks = _prefilter_batch_keys()
-            # exact candidate DP cells, vectorized over the pair arrays
-            q_lens = np.diff(q_off)
-            t_lens = np.diff(t_off)
-            cells = 0
-            for chunk, ct, co in cand_chunks:
-                if len(ct) == 0:
-                    continue
-                qlen_pair = np.repeat(q_lens[np.asarray(chunk)],
-                                      np.diff(co))
-                cells += int(np.dot(qlen_pair, t_lens[ct]))
-            cand = None
         else:
-            cand = _run_keyed(_prefilter_one, keys, n_threads,
-                              len(keys) * t_res > 2e10,
-                              label="prefilter ")
-        if cand is not None:
-            cells = sum(
-                len(q_all[k]) * sum(len(t_aa[t]) for t in cand[k])
-                for k in keys)
+            cand_chunks = _keyed_chunks(keys, _run_keyed(
+                _prefilter_one, keys, n_threads, len(keys) * t_res > 2e10,
+                label="prefilter "))
+        # exact candidate DP cells, vectorized over the pair arrays
+        q_lens = np.diff(q_off)
+        t_lens = np.diff(t_off)
+        cells = 0
+        for chunk, ct, co in cand_chunks:
+            if len(ct) == 0:
+                continue
+            qlen_pair = np.repeat(q_lens[np.asarray(chunk)], np.diff(co))
+            cells += int(np.dot(qlen_pair, t_lens[ct]))
         engage = _device_engage(cells)
         log(2, f"candidate cells {cells:.3g} -> "
                f"{'device' if engage else 'host'} scoring engine")
-        if cand is None and (engage or not batched_aln_ok):
-            # these consumers want per-key target lists
+        if engage:
+            prot = _search_tpu(keys, t_aa, (t_flat, t_off),
+                               _joined_chunks(cand_chunks), q_all, m40,
+                               evaluer, params)
+        elif batched_aln_ok:
+            prot = _align_batch_chunks(cand_chunks)
+        else:
+            # per-key target lists for the per-query acceptance rules
             cand = {}
             for chunk, ct, co in cand_chunks:
                 for i, k in enumerate(chunk):
                     cand[k] = ct[co[i]:co[i + 1]].tolist()
-        if engage:
-            prot = _search_tpu(keys, t_aa, cand, q_all, m40,
-                               evaluer, params)
-        elif cand is None:
-            prot = _align_batch_chunks(cand_chunks)
-        else:
+
             def _align_one(qkey):
                 results = align_query(q_all[qkey], cand[qkey], t_aa, m40,
                                       params.align, evaluer)
@@ -461,11 +460,19 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
     return _nucl_merge(prot, query_db, target_db, params)
 
 
-# Exact-candidate DP cells above which the accelerator beats the host
-# aligner including its fixed init/pack overhead (host ~4e9 cells/s/core
-# vs device ~6e10 sustained + seconds of overhead; measured on the
-# scale corpora, see BASELINE.md).
-_DEVICE_CELLS_THRESHOLD = 3e10
+# Exact candidate DP cells above which `auto` sends a search on a card to
+# the GPU scoring engine. chip_smoke.py phase 3(b) on an NVIDIA H100 80GB
+# HBM3 (700 W power limit) timed the search stage of both engines under
+# `auto` (host prefilter, the control search forked onto the host), three
+# alternating fresh processes each, medians: at the phase-3 corpus
+# (82,039,218 candidate cells) GPU engine 18.010 s, host engine 6.486 s;
+# with its query side three times over (246,117,654 cells) 21.446 s and
+# 8.102 s. The GPU engine lost at both shapes, by a fixed cost (import
+# torch: 7.4-9.6 s in a fresh process) and per cell (2.09e-8 against
+# 9.85e-9 s), so its line never crosses the host engine's. The threshold
+# therefore lies above every measured shape (x4,000 the larger): `auto`
+# keeps the host engine, and --use-tpu 1 still forces the GPU engine.
+_DEVICE_CELLS_THRESHOLD = 1e12
 
 # Queries per native batch-driver dispatch: bounds the transient hit
 # lists and gives the Progress bar tick granularity.
@@ -609,98 +616,223 @@ def _accelerator_present() -> bool:
     return torch.cuda.is_available()
 
 
-def _search_tpu(keys, t_aa, cand, q_all, m40, evaluer, params):
-    """Device scoring engine: candidates come from the host prefilter
-    (order-dependent integer heuristics, QueryMatcher.cpp:84-323); the
-    device bulk-scores every (query x candidate-target) cell in packed
-    dispatches, and the exact host alignment runs only on E-value
-    survivors — output-identical to the host path (the device scores
-    are cell-exact, tests/test_sw_packed.py). Survivor re-alignment is
-    fork-pooled like the host path (the reference realigns accepted
-    pairs omp-parallel, Alignment.cpp:255-)."""
-    from ..ops.align import sw_bias_i8, sw_align, check_criteria
+def _keyed_chunks(keys, cand: dict) -> list:
+    """Per-key candidate lists as the batch prefilter's raw arrays:
+    [(chunk_keys, cand_t int32, cand_off int64), ...] in _BATCH_CHUNK
+    runs of keys."""
+    import itertools
+    out = []
+    for lo in range(0, len(keys), _BATCH_CHUNK):
+        chunk = keys[lo:lo + _BATCH_CHUNK]
+        co = np.zeros(len(chunk) + 1, dtype=np.int64)
+        np.cumsum([len(cand[k]) for k in chunk], out=co[1:])
+        ct = np.fromiter(itertools.chain.from_iterable(
+            cand[k] for k in chunk), dtype=np.int32, count=int(co[-1]))
+        out.append((chunk, ct, co))
+    return out
 
-    biases = {}
-    for qkey in keys:
-        q = q_all[qkey]
-        biases[qkey] = (sw_bias_i8(q, m40) if params.align.comp_bias_corr
-                        else np.zeros(len(q), dtype=np.int64))
 
-    # Candidate scores per key, computed in key BLOCKS so the dense
-    # [block, union] matrix never exceeds a fixed cell budget — at
-    # catalog scale (30k+ query sets, README.md:107-110) a single
-    # all-keys union matrix is the memory wall (round-2 weak #3). Each
-    # block's union only spans the targets ITS queries hit, so sparse
-    # workloads stay small; per-key results compact to exactly
-    # len(cand[k]) scores.
-    cand_scores = {}
+def _joined_chunks(cand_chunks):
+    """One (cand_t, cand_off) pair over every chunk, keys in order."""
+    cts = [ct for _, ct, _ in cand_chunks]
+    offs = [np.zeros(1, dtype=np.int64)]
+    base = 0
+    for _, ct, co in cand_chunks:
+        offs.append(np.asarray(co[1:], dtype=np.int64) + base)
+        base += int(co[-1])
+    cand_t = (np.concatenate(cts).astype(np.int64) if cts
+              else np.zeros(0, dtype=np.int64))
+    return cand_t, np.concatenate(offs)
+
+
+# Padded positions per local_aa_bias_batch call in _query_bias_i8: its
+# [block, longest, alphabet] float64 table stays near 11 MB.
+_BIAS_BLOCK_CELLS = 1 << 16
+
+
+def _query_bias_i8(q_list, matrix) -> list:
+    """sw_bias_i8 of every query (ops/align.py): local_aa_bias_batch over
+    length-sorted blocks of at most _BIAS_BLOCK_CELLS padded positions
+    (one long ORF pads only its own block), rounded half away from zero
+    as sw_bias_i8 rounds. Bit-identical to sw_bias_i8 per query."""
+    from ..ops.bias import local_aa_bias_batch, round_half_away
+    n = len(q_list)
+    lens = np.fromiter((len(q) for q in q_list), dtype=np.int64, count=n)
+    order = np.argsort(lens, kind="stable")
+    sorted_lens = np.maximum(lens[order], 1)
+    out = [None] * n
+    lo = 0
+    while lo < n:
+        # the block [lo, hi) pads to its last (longest) query
+        span = np.arange(1, min(n - lo, _BIAS_BLOCK_CELLS) + 1)
+        fits = span * sorted_lens[lo:lo + len(span)] <= _BIAS_BLOCK_CELLS
+        hi = lo + max(int(np.searchsorted(~fits, True)), 1)
+        idx = order[lo:hi]
+        for i, b in zip(idx.tolist(), local_aa_bias_batch(
+                [q_list[i] for i in idx], matrix)):
+            out[i] = round_half_away(b)
+        lo = hi
+    return out
+
+
+def _key_blocks(cand_t, cand_off, max_cells) -> list:
+    """[(k0, k1)] key ranges for _candidate_scores: each block closes at
+    the first key where keys x distinct candidate targets exceeds
+    max_cells (the last may stay under it). A pair's target is new to
+    a block starting at pair p0 when its previous occurrence lies
+    before p0, so each block reads a cumulative sum over a window of
+    pairs that doubles until the block closes."""
+    nk = len(cand_off) - 1
+    n = len(cand_t)
+    order = np.argsort(cand_t, kind="stable")
+    prev = np.full(n, -1, dtype=np.int64)
+    same = cand_t[order[1:]] == cand_t[order[:-1]]
+    prev[order[1:][same]] = order[:-1][same]
     blocks = []
-    cur, cur_union = [], set()
-    for k in keys:
-        cur.append(k)
-        cur_union.update(cand[k])
-        if len(cur) * max(len(cur_union), 1) > _MAX_MATRIX_CELLS:
-            blocks.append(cur)
-            cur, cur_union = [], set()
-    if cur:
-        blocks.append(cur)
+    s, w = 0, 64
+    while s < nk:
+        e = min(s + w, nk)
+        p0 = int(cand_off[s])
+        new = np.concatenate(([0], np.cumsum(prev[p0:cand_off[e]] < p0)))
+        union = new[cand_off[s + 1:e + 1] - p0]
+        n_keys = np.arange(1, e - s + 1)
+        over = np.flatnonzero(n_keys * np.maximum(union, 1) > max_cells)
+        if len(over) == 0 and e < nk:
+            w *= 2
+            continue
+        end = s + int(over[0]) + 1 if len(over) else nk
+        blocks.append((s, end))
+        w = max(64, end - s)
+        s = end
+    return blocks
+
+
+def _candidate_scores(q_list, t_aa, cand_t, cand_off, biases, m40,
+                      params) -> np.ndarray:
+    """Exact SW score of every (query, candidate) pair, int64 in pair
+    order: B4 per shard on the mesh, B1 on a card, the torch scan on the
+    CPU. Keys go in blocks whose dense [block, union] matrix stays within
+    _MAX_MATRIX_CELLS: at catalog scale (30k+ query sets,
+    README.md:107-110) a single all-keys union matrix is the memory
+    wall, and a block's union spans only the targets its queries hit."""
+    out = np.zeros(len(cand_t), dtype=np.int64)
     mesh = None
     if params.mesh is not None:
         from ..parallel.sharding import make_mesh
         # on the CUDA devices when a GPU is present, else on the CPU
         mesh = make_mesh(*params.mesh)
     on_gpu = _accelerator_present()
-    for block in blocks:
-        union = sorted({t for k in block for t in cand[k]})
-        col_of = {t: j for j, t in enumerate(union)}
-        if not union:
-            for k in block:
-                cand_scores[k] = np.zeros(0, dtype=np.int64)
+    go, ge = params.align.gap_open, params.align.gap_extend
+    for k0, k1 in _key_blocks(cand_t, cand_off, _MAX_MATRIX_CELLS):
+        p0, p1 = int(cand_off[k0]), int(cand_off[k1])
+        if p0 == p1:
             continue
+        union, cols = np.unique(cand_t[p0:p1], return_inverse=True)
+        rows = np.repeat(np.arange(k1 - k0),
+                         np.diff(cand_off[k0:k1 + 1]))
+        q_blk, b_blk = q_list[k0:k1], biases[k0:k1]
         if mesh is not None:
             # kernel B4 per shard; scores come back as numpy
             from ..parallel.sharding import sharded_allpairs_scores
             scores = sharded_allpairs_scores(
-                mesh, [q_all[k] for k in block], [t_aa[t] for t in union],
-                m40.scores, bias_list=[biases[k] for k in block],
-                gap_open=params.align.gap_open,
-                gap_extend=params.align.gap_extend)
+                mesh, q_blk, [t_aa[t] for t in union.tolist()], m40.scores,
+                bias_list=b_blk, gap_open=go, gap_extend=ge)
+            out[p0:p1] = scores[rows, cols]
         elif on_gpu:
-            # scores come back as numpy: forked realign workers below
-            # must never touch CUDA state
             from ..ops.sw_packed import device_allpairs_scores
             scores = device_allpairs_scores(
-                [q_all[k] for k in block], [t_aa[t] for t in union],
-                m40.scores, bias_list=[biases[k] for k in block],
-                gap_open=params.align.gap_open,
-                gap_extend=params.align.gap_extend, device="cuda")
+                q_blk, [t_aa[t] for t in union.tolist()], m40.scores,
+                bias_list=b_blk, gap_open=go, gap_extend=ge, device="cuda")
+            out[p0:p1] = scores[rows, cols]
         else:
-            # no GPU: the bucketed torch scan on the CPU (same exact
-            # scores)
+            # no GPU: the bucketed torch scan on the CPU, pair by pair
             from ..ops.sw_tpu import score_pairs_bucketed
-            pairs = [(k, t) for k in block for t in cand[k]]
-            flat = score_pairs_bucketed(
-                pairs, q_all, t_aa, m40.scores, biases,
-                params.align.gap_open, params.align.gap_extend,
-                device="cpu")
-            qrow = {k: i for i, k in enumerate(block)}
-            scores = np.zeros((len(block), len(union)), dtype=np.int64)
-            for (k, t), sc in zip(pairs, flat):
-                scores[qrow[k], col_of[t]] = sc
-        for qi, k in enumerate(block):
-            cols = np.fromiter((col_of[t] for t in cand[k]),
-                               dtype=np.int64, count=len(cand[k]))
-            cand_scores[k] = np.asarray(scores)[qi, cols].astype(np.int64)
+            out[p0:p1] = score_pairs_bucketed(
+                list(zip(rows.tolist(), cand_t[p0:p1].tolist())), q_blk,
+                t_aa, m40.scores, b_blk, go, ge, device="cpu")
+    return out
+
+
+def _evalue_screen(scores, q_lens, cand_off, evaluer, evalue_max):
+    """Bool mask of the pairs whose E-value passes, vectorized over every
+    pair as align_query_batch screens (ops/align.py)."""
+    pair_q = np.repeat(np.arange(len(q_lens)), np.diff(cand_off))
+    return evaluer.evalue(scores, q_lens[pair_q]) <= evalue_max
+
+
+def _align_survivors(keys, q_list, t_packed, cand_t, cand_off, keep, m40,
+                     evaluer, params) -> dict:
+    """{key: rows} of the screened pairs through align_query_batch in
+    _BATCH_CHUNK runs of keys: its native forward pass gives each
+    survivor's end cells (the device scores carry none) and its
+    traceback runs on survivors only."""
+    from ..ops.align import align_query_batch
+    t_flat, t_off = t_packed
+    pair_q = np.repeat(np.arange(len(keys)), np.diff(cand_off))
+    s_off = np.zeros(len(keys) + 1, dtype=np.int64)
+    np.cumsum(np.bincount(pair_q[keep], minlength=len(keys)),
+              out=s_off[1:])
+    s_t = cand_t[keep]
+    prot = {}
+    for lo in range(0, len(keys), _BATCH_CHUNK):
+        hi = min(lo + _BATCH_CHUNK, len(keys))
+        co = s_off[lo:hi + 1] - s_off[lo]
+        res = align_query_batch(
+            q_list[lo:hi], None, t_flat, t_off, m40, params.align, evaluer,
+            cand_arrays=(s_t[s_off[lo]:s_off[hi]], co), as_rows=True)
+        prot.update(zip(keys[lo:hi], res))
+    return prot
+
+
+def _search_tpu(keys, t_aa, t_packed, cand_arrays, q_all, m40, evaluer,
+                params):
+    """Device scoring engine: candidates come from the host prefilter
+    (order-dependent integer heuristics, QueryMatcher.cpp:84-323) as raw
+    arrays, cand_arrays=(cand_t, cand_off) with keys[i]'s candidates at
+    cand_t[cand_off[i]:cand_off[i + 1]]; the device bulk-scores every
+    (query x candidate-target) cell in packed dispatches, and the exact
+    host alignment runs only on E-value survivors — output-identical to
+    the host path (the device scores are cell-exact,
+    tests/test_sw_packed.py).
+
+    With the product's acceptance parameters the biases, the E-value
+    screen and the survivors' alignment run over whole key blocks
+    (_query_bias_i8, _evalue_screen, _align_survivors); otherwise each
+    key is realigned on its own, as the JAX package does, fork-pooled
+    like the host path (the reference realigns accepted pairs
+    omp-parallel, Alignment.cpp:255-)."""
+    from ..ops.align import sw_align, check_criteria
+
+    cand_t, cand_off = cand_arrays
+    q_list = [q_all[k] for k in keys]
+    if params.align.comp_bias_corr:
+        biases = _query_bias_i8(q_list, m40)
+    else:
+        biases = [np.zeros(len(q), dtype=np.int64) for q in q_list]
+    scores = _candidate_scores(q_list, t_aa, cand_t, cand_off, biases, m40,
+                               params)
+    a = params.align
+    if (a.max_accept == INT_MAX and a.max_rejected == INT_MAX
+            and a.cov_thr == 0 and a.seq_id_thr == 0
+            and a.aln_len_thr == 0):
+        q_lens = np.fromiter((len(q) for q in q_list), dtype=np.int64,
+                             count=len(q_list))
+        keep = _evalue_screen(scores, q_lens, cand_off, evaluer, a.evalue)
+        return _align_survivors(keys, q_list, t_packed, cand_t, cand_off,
+                                keep, m40, evaluer, params)
+
+    row_of = {k: i for i, k in enumerate(keys)}
 
     def _realign_one(qkey):
+        i = row_of[qkey]
+        lo, hi = int(cand_off[i]), int(cand_off[i + 1])
         out = []
-        for ci, t in enumerate(cand[qkey]):
-            sc = int(cand_scores[qkey][ci])
+        for t, sc in zip(cand_t[lo:hi].tolist(), scores[lo:hi].tolist()):
             if float(evaluer.evalue(sc, len(q_all[qkey]))) \
                     > params.align.evalue:
                 continue
             res = sw_align(q_all[qkey], t_aa[t], m40, params.align, evaluer,
-                           biases[qkey])
+                           biases[i])
             if res is None:
                 continue
             res.target = t
@@ -710,8 +842,12 @@ def _search_tpu(keys, t_aa, cand, q_all, m40, evaluer, params):
         return [r.row_fields() for r in out]
 
     n_threads = params.threads if params.threads > 0 else (os.cpu_count() or 1)
-    surv_cells = sum(len(q_all[k]) * sum(len(t_aa[t]) for t in cand[k])
-                     for k in keys)
+    t_lens = np.diff(t_packed[1])
+    pair_q = np.repeat(np.arange(len(keys)), np.diff(cand_off))
+    surv_cells = int(np.dot(np.fromiter((len(q) for q in q_list),
+                                        dtype=np.int64,
+                                        count=len(q_list))[pair_q],
+                            t_lens[cand_t]))
     return _run_keyed(_realign_one, keys, n_threads, surv_cells > 2e9,
                       label="align ")
 

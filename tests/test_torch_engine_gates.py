@@ -1,10 +1,12 @@
-"""The port's dense-prefilter gate and its `auto` route.
+"""The port's engine gates and their `auto` routes.
 
-dense_prefilter_viable's device terms were measured on an H100 (the
-constants in spacepharer_tpu_torch/pipeline/predictmatch.py). These
-tests pin its DECISIONS for the shapes of
-tests/test_engine_gates.py::TestDensePrefilterGate, and check that
-search_setdbs' `auto` route asks the gate before it probes for a card.
+Every term of dense_prefilter_viable and device_scoring_engages was
+measured on an H100's machine by chip_smoke.py (the constants in
+spacepharer_tpu_torch/pipeline/predictmatch.py). These tests pin their
+DECISIONS: the dense gate's for the shapes of
+tests/test_engine_gates.py::TestDensePrefilterGate, the scoring gate's
+on each side of its threshold, and that search_setdbs' `auto` routes ask
+each gate before they probe for a card.
 """
 import glob
 import os
@@ -18,8 +20,7 @@ from spacepharer_tpu_torch.pipeline import predictmatch as pm
 
 @pytest.mark.parametrize("nk_total,t_res,has_idx,dense", [
     # the two shapes chip_smoke.py phase 4(d) measured in fresh processes
-    # (fresh index): the dense route took 30.3 s and 13.3 s against the
-    # host walk's 6.8 s and 4.2 s
+    # (fresh index), where the host route was the faster
     pytest.param(94_223, 6_919_175, False, False, id="phase3_corpus"),
     pytest.param(2_149, 6_919_175, False, False, id="phase3_small_side"),
     # a few spacer sets against a fresh half-gigabase target (the JAX
@@ -92,3 +93,76 @@ def test_use_tpu_0_keeps_auto_off_the_card(monkeypatch, golden_dbs):
     devices, gate_calls = _route(monkeypatch, golden_dbs, viable=True,
                                  use_tpu=False)
     assert devices == [] and gate_calls == []
+
+
+@pytest.mark.parametrize("cells,engages", [
+    # the golden bundle, and chip_smoke.py phase 3(b)'s two shapes, where
+    # the host engine's search stage was the faster
+    pytest.param(26_100, False, id="golden"),
+    pytest.param(82_039_218, False, id="phase3_corpus"),
+    pytest.param(246_117_654, False, id="phase3_corpus_x3"),
+    # just above the TPU's break-even (3e10), where `auto` used to send
+    # a search on a card to the GPU engine
+    pytest.param(3e10 + 1, False, id="tpu_break_even"),
+    # on each side of the threshold
+    pytest.param(1e12, False, id="at_threshold"),
+    pytest.param(1e12 + 1, True, id="above_threshold"),
+])
+def test_scoring_gate_decisions(cells, engages):
+    assert pm.device_scoring_engages(None, None, cells,
+                                     accel_present=lambda: True) is engages
+
+
+def test_scoring_gate_needs_a_card_and_yields_to_flags():
+    def boom():
+        raise AssertionError("the card probe ran below the threshold")
+
+    assert not pm.device_scoring_engages(None, None, 1e13,
+                                         accel_present=lambda: False)
+    assert not pm.device_scoring_engages(None, None, 1e6,
+                                         accel_present=boom)
+    assert pm.device_scoring_engages(True, None, 0, accel_present=boom)
+    assert pm.device_scoring_engages(None, (2, 4), 0, accel_present=boom)
+    assert not pm.device_scoring_engages(False, None, 1e30,
+                                         accel_present=boom)
+
+
+def _scoring_route(monkeypatch, golden_dbs, threshold=None):
+    """One search of the golden queries under `auto`, a card reported
+    present and the host prefilter: the candidate cells the scoring gate
+    saw and whether the GPU engine (_search_tpu) ran."""
+    seen, ran = [], []
+    gate = pm.device_scoring_engages
+
+    def watched(use_tpu, mesh, cells, accel_present=None):
+        seen.append(cells)
+        return gate(use_tpu, mesh, cells, accel_present)
+
+    def engine(keys, *a):
+        ran.append(len(keys))
+        return {k: [] for k in keys}
+
+    monkeypatch.setattr(pm, "device_scoring_engages", watched)
+    monkeypatch.setattr(pm, "_accelerator_present", lambda: True)
+    monkeypatch.setattr(pm, "_search_tpu", engine)
+    if threshold is not None:
+        monkeypatch.setattr(pm, "_DEVICE_CELLS_THRESHOLD", threshold)
+    qdb, tdb = golden_dbs
+    params = pm.PredictParams(
+        perform_nucl_aln=False,
+        prefilter=pm.PrefilterParams(engine="host"))
+    pm.search_setdbs(qdb, tdb, params)
+    return seen, ran
+
+
+def test_auto_scoring_route_keeps_the_host_engine(monkeypatch, golden_dbs):
+    seen, ran = _scoring_route(monkeypatch, golden_dbs)
+    assert len(seen) == 1 and 0 < seen[0] <= pm._DEVICE_CELLS_THRESHOLD
+    assert ran == []
+
+
+def test_auto_scoring_route_takes_the_card_above_threshold(monkeypatch,
+                                                           golden_dbs):
+    seen, ran = _scoring_route(monkeypatch, golden_dbs, threshold=1000)
+    assert len(seen) == 1 and seen[0] > 1000
+    assert ran == [golden_dbs[0].n_orfs]
