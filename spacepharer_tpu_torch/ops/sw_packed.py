@@ -1,10 +1,16 @@
-"""All-pairs Smith-Waterman scorer on the GPU (the production device scorer).
+"""Smith-Waterman scorer B1 on the GPU (the production device scorer).
 
-The port of spacepharer_tpu/ops/sw_packed.py. It scores every query
-against every target with the exact affine-gap SW best local score
-(Farrar E-from-pre-F semantics, the reference's sw_sse2_byte,
-lib/mmseqs/src/alignment/StripedSmithWaterman.cpp), cell for cell equal
-to ops.align._forward_pass and to the TPU kernel it replaces.
+The port of spacepharer_tpu/ops/sw_packed.py. It gives the exact
+affine-gap SW best local score (Farrar E-from-pre-F semantics, the
+reference's sw_sse2_byte, lib/mmseqs/src/alignment/StripedSmithWaterman.cpp),
+cell for cell equal to ops.align._forward_pass and to the TPU kernel it
+replaces, through two entries of csrc/sw_allpairs.cu:
+
+  sw_allpairs   every query against every target (int32 [n_q, n_t]);
+  sw_pairs      a list of (query, target) pairs, one score each: the GPU
+                scoring engine's entry (device_pair_scores), which scores
+                the host prefilter's candidate pairs and nothing around
+                them.
 
 Layout (host packing, shared by the CUDA kernel and its plain version):
 
@@ -21,6 +27,21 @@ Targets are packed longest first (a warp of the kernel then holds
 targets of near-equal length); ``tpack["order"]`` maps packed slots back
 to the caller's order. Empty queries and empty targets score 0.
 
+The pair-list entry takes its own layout (pack_pair_queries; the
+targets as the search holds them):
+
+  prof      int8 [S, 32, 16]  each query's profile in 16-row stripes,
+                              bias folded in: prof[s, a, r] scores row r
+                              of stripe s at letter a; -128 for pad rows
+                              and letters the matrix lacks
+  q_stripe  int64 [n_q]       first stripe of each query
+  q_len     int32 [n_q]       query lengths
+  t_seqs    uint8 [t_total + T_PAD]  every target's letters,
+                              concatenated (the kernel reads 4 letters at
+                              a time, up to T_PAD bytes past the last)
+  t_off     int64 [n_t+1]     target t is t_seqs[t_off[t]:t_off[t+1]]
+  pair_q, pair_t  int32 [n]   the pairs, in any order
+
 The TPU kernel's lane packing, BIG*qid segmented cummax, one-hot MXU
 gather and harvest matmul have no counterpart: they map its DP onto
 (8, 128) vector tiles. Without them there is no score ceiling and no
@@ -28,6 +49,7 @@ query-length limit, so every query rides the kernel (the TPU path sent
 queries with bound >= 4096 or length > 2048 to the bucketed scan).
 """
 import ctypes
+import time
 
 import numpy as np
 import torch
@@ -39,6 +61,9 @@ T_ALIGN = 16          # target start alignment (one 128-bit load)
 STRIPE = 16           # query rows per register stripe (csrc/sw_allpairs.cu)
 SCRATCH_BYTES = 1 << 30   # stripe-boundary scratch per launch
 PLAIN_MAX_ELEMS = 1 << 24  # DP-state elements per target run (plain)
+PROF8_NEG = -128      # pair-list profile value of pad rows and absent letters
+T_PAD = 8             # readable bytes the pair kernel needs past t_seqs' end
+PAIR_CHUNK = 1 << 24  # pairs per sw_pairs call in device_pair_scores
 
 # kernel launches made by sw_allpairs, and the true DP cells (query
 # residues x target residues) they scored; the plain CPU path counts in
@@ -49,6 +74,13 @@ cells = 0
 # CUDA events recorded around its launches alone (the host work of the
 # wrapper left out)
 launch_events = None
+# the same two counts for sw_pairs, the pair-list entry
+pair_launches = 0
+pair_cells = 0
+# None, or a dict to which device_pair_scores adds the host seconds of its
+# steps ("pack", "upload", "score", "read-back"), each ended by a
+# synchronise
+pair_timing = None
 
 
 def pack_queries(q_list, matrix_scores, bias_list=None):
@@ -177,9 +209,9 @@ def sw_allpairs_plain(prof, q_off, t_seqs, t_off, t_len,
     return out
 
 
-def _check(name, x, dtype, dev):
+def _check(name, x, dtype, dev, who="sw_allpairs"):
     if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-        raise ValueError(f"sw_allpairs: {name} must be a contiguous {dtype} "
+        raise ValueError(f"{who}: {name} must be a contiguous {dtype} "
                          f"tensor on {dev}, got {x.dtype} on {x.device}")
 
 
@@ -291,3 +323,265 @@ def device_allpairs_scores(q_list, t_list, matrix_scores, bias_list=None,
     qpack = pack_queries(q_list, matrix_scores, bias_list)
     tpack = pack_targets(t_list)
     return allpairs_scores(qpack, tpack, gap_open, gap_extend, device)
+
+
+def pack_pair_queries(q_list, matrix_scores, bias_list=None, device="cpu"):
+    """The pair-list entry's query profiles (module docstring), built on
+    `device` from the queries' letters and biases (one upload of each):
+    dict(prof int8 [S, 32, 16], q_stripe int64 [n_q], q_len int32 [n_q]).
+    bias_list, when given, holds one bias per query residue. Raises
+    ValueError where a score plus its bias leaves [-127, 127] (every
+    shipped matrix with its int8 bias lies well inside)."""
+    dev = torch.device(device)
+    lens = np.fromiter((len(q) for q in q_list), dtype=np.int64,
+                       count=len(q_list))
+    n_str = (lens + STRIPE - 1) // STRIPE
+    q_stripe = np.zeros(len(q_list), dtype=np.int64)
+    np.cumsum(n_str[:-1], out=q_stripe[1:])
+    total = int(lens.sum())
+    prof = torch.full((int(n_str.sum()) * A_PAD * STRIPE,), PROF8_NEG,
+                      dtype=torch.int8, device=dev)
+    q_stripe_d = torch.from_numpy(q_stripe).to(dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    if total:
+        qcat = torch.from_numpy(np.concatenate(q_list)).to(dev).long()
+        rows = torch.from_numpy(np.ascontiguousarray(
+            matrix_scores, dtype=np.int32)).to(dev)[qcat]
+        if bias_list is not None:
+            bcat = np.concatenate(bias_list)
+            if len(bcat) != total:
+                raise ValueError("pack_pair_queries: one bias per query "
+                                 "residue")
+            rows += torch.from_numpy(bcat.astype(np.int32)).to(dev)[:, None]
+        lo, hi = (int(v) for v in torch.aminmax(rows))
+        if lo < -127 or hi > 127:
+            raise ValueError("pack_pair_queries: profile scores must lie in "
+                             "[-127, 127] (int8)")
+        # residue j of query q: row j % 16 of stripe q_stripe[q] + j // 16
+        j = torch.arange(total, device=dev) - torch.repeat_interleave(
+            torch.cumsum(lens_d, 0) - lens_d, lens_d, output_size=total)
+        base = ((torch.repeat_interleave(q_stripe_d, lens_d,
+                                         output_size=total) + j // STRIPE)
+                * (A_PAD * STRIPE) + j % STRIPE)
+        col = torch.arange(rows.shape[1], device=dev) * STRIPE
+        prof[(base[:, None] + col).reshape(-1)] = rows.reshape(-1).to(
+            torch.int8)
+    return {"prof": prof.reshape(-1, A_PAD, STRIPE), "q_stripe": q_stripe_d,
+            "q_len": lens_d.to(torch.int32)}
+
+
+def sw_pairs_plain(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
+                   gap_open: int = 16, gap_extend: int = 2) -> torch.Tensor:
+    """Plain PyTorch version of the pair-list kernel: int32 [n] best
+    scores in pair order, same inputs, on their device.
+
+    sw_allpairs_plain's column loop over a batch of pairs instead of
+    queries x targets: pairs go longest target first in runs of at most
+    PLAIN_MAX_ELEMS / (longest query) pairs, each pair's row j reads
+    profile row q_stripe * 16 + j (a -128 row past its query's end), and
+    columns past a target's end read letter 31 (-128), which cannot raise
+    a score (csrc/sw_allpairs.cu)."""
+    dev = prof.device
+    n = pair_q.numel()
+    out = torch.zeros(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    pq, pt = pair_q.long(), pair_t.long()
+    ql = q_len.long()[pq]
+    t0 = t_off[pt]
+    tl = t_off[pt + 1] - t0
+    lq = int(ql.max())
+    if lq == 0 or int(tl.max()) == 0:
+        return out
+    # profile rows [S * 16, 32] flattened, one -128 row appended for rows
+    # past a query's end
+    rows = prof.permute(0, 2, 1).reshape(-1, A_PAD).to(torch.int32)
+    flat = torch.cat([rows.reshape(-1),
+                      torch.full((A_PAD,), PROF8_NEG, dtype=torch.int32,
+                                 device=dev)])
+    pad_row = rows.shape[0]
+    j = torch.arange(lq, device=dev)
+    c1 = (gap_extend * (j + 1) - gap_open).to(torch.int32)
+    c2 = (gap_extend * j).to(torch.int32)
+    order = torch.argsort(tl, descending=True, stable=True)
+    chunk = max(1, PLAIN_MAX_ELEMS // lq)
+    for c0 in range(0, n, chunk):
+        idx = order[c0:c0 + chunk]
+        b = idx.numel()
+        width = int(tl[idx[0]])
+        if width == 0:
+            break
+        row = q_stripe[pq[idx]][:, None] * STRIPE + j[None, :]
+        base = torch.where(j[None, :] < ql[idx][:, None], row,
+                           pad_row) * A_PAD                # [b, lq]
+        H = torch.zeros((b, lq), dtype=torch.int32, device=dev)
+        E = torch.zeros_like(H)
+        best = torch.zeros(b, dtype=torch.int32, device=dev)
+        zero = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        neg = torch.full((b, 1), NEG, dtype=torch.int32, device=dev)
+        for col in range(width):
+            inside = col < tl[idx]
+            pos = torch.where(inside, t0[idx] + col, 0)
+            letter = torch.where(inside, t_seqs[pos].long() & (A_PAD - 1),
+                                 PAD_LETTER)
+            sub = flat[base + letter[:, None]]
+            h_diag = torch.cat([zero, H[:, :-1]], dim=1)
+            h_pre = torch.maximum(h_diag + sub, E)
+            E = torch.clamp_min(torch.maximum(h_pre - gap_open,
+                                              E - gap_extend), 0)
+            cm = torch.cummax(h_pre + c1, dim=1).values
+            F = torch.cat([neg, cm[:, :-1]], dim=1) - c2
+            H = torch.maximum(h_pre, F)
+            best = torch.maximum(best, H.amax(dim=1))
+        out[idx] = best
+    return out
+
+
+def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
+             gap_open: int = 16, gap_extend: int = 2) -> torch.Tensor:
+    """int32 [n] best SW score of each (pair_q[p], pair_t[p]) pair, in
+    pair order (layout: module docstring).
+
+    On CUDA tensors this sorts the pairs on the card by stripe count, then
+    target length, longest first, and launches csrc/sw_allpairs.cu's
+    pair-list entry, which writes each score at its pair's position; it
+    raises if the kernel cannot be built or launched. On CPU tensors it
+    runs sw_pairs_plain."""
+    global pair_launches, pair_cells
+    dev = prof.device
+    if dev.type == "cpu":
+        return sw_pairs_plain(prof, q_stripe, q_len, t_seqs, t_off, pair_q,
+                              pair_t, gap_open, gap_extend)
+    if dev.type != "cuda":
+        raise ValueError(f"sw_pairs: unsupported device {dev}")
+    for name, x, dtype in (("prof", prof, torch.int8),
+                           ("q_stripe", q_stripe, torch.int64),
+                           ("q_len", q_len, torch.int32),
+                           ("t_seqs", t_seqs, torch.uint8),
+                           ("t_off", t_off, torch.int64),
+                           ("pair_q", pair_q, torch.int32),
+                           ("pair_t", pair_t, torch.int32)):
+        _check(name, x, dtype, dev, "sw_pairs")
+    if prof.dim() != 3 or tuple(prof.shape[1:]) != (A_PAD, STRIPE):
+        raise ValueError(f"sw_pairs: prof must be [S, {A_PAD}, {STRIPE}]")
+    if prof.data_ptr() % 16:
+        raise ValueError("sw_pairs: prof must be 16-byte aligned")
+    if t_seqs.numel() < int(t_off[-1]) + T_PAD:
+        raise ValueError(f"sw_pairs: t_seqs must hold {T_PAD} bytes past "
+                         "its last target")
+    from ._cuda import library
+    lib = library("sw_allpairs")
+    if lib.sw_allpairs_stripe() != STRIPE:
+        raise RuntimeError("sw_pairs: STRIPE disagrees with the kernel")
+    n = pair_q.numel()
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    t_lens = (t_off[1:] - t_off[:-1])[pair_t.long()]
+    q_lens = q_len.long()[pair_q.long()]
+    stripes = (q_lens + STRIPE - 1) // STRIPE
+    _, order = torch.sort(stripes * (1 << 32) + t_lens, descending=True)
+    pq, pt = pair_q[order], pair_t[order]
+    # a pair whose query is longer than one stripe hands stripe boundaries
+    # through a scratch line of its target's length; a launch takes the
+    # pairs whose lines start within one SCRATCH_BYTES budget
+    need = torch.where(stripes[order] > 1, t_lens[order], 0)
+    end = torch.cumsum(need, 0)
+    start = end - need
+    group = start // max(1, SCRATCH_BYTES // 8)
+    n_groups = int(group[-1]) + 1
+    bounds = torch.searchsorted(
+        group, torch.arange(n_groups + 1, device=dev)).tolist()
+    spans = [(a, b) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+    size = max(int(end[b - 1] - start[a]) for a, b in spans)
+    scratch = torch.empty(2 * max(size, 1), dtype=torch.int32, device=dev)
+    cur = torch.cuda.current_stream(dev)
+    events = None
+    if launch_events is not None:
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        events[0].record(cur)
+    for a, b in spans:
+        scr_off = torch.where(need[a:b] > 0, start[a:b] - start[a], -1)
+        err = lib.sw_pairs_launch(
+            ctypes.c_void_p(prof.data_ptr()),
+            ctypes.c_void_p(q_stripe.data_ptr()),
+            ctypes.c_void_p(q_len.data_ptr()),
+            ctypes.c_void_p(t_seqs.data_ptr()),
+            ctypes.c_void_p(t_off.data_ptr()),
+            ctypes.c_void_p(pq[a:].data_ptr()),
+            ctypes.c_void_p(pt[a:].data_ptr()),
+            ctypes.c_void_p(order[a:].data_ptr()),
+            ctypes.c_void_p(scr_off.data_ptr()), ctypes.c_int(b - a),
+            ctypes.c_int(gap_open), ctypes.c_int(gap_extend),
+            ctypes.c_void_p(scratch.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(cur.cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"sw_pairs kernel launch failed: CUDA error "
+                               f"{err}")
+        pair_launches += 1
+    if events is not None:
+        events[1].record(cur)
+        launch_events.append(events)
+    pair_cells += int((q_lens * t_lens).sum())
+    return out
+
+
+def _lap(timing, key, since, dev):
+    """Add the seconds since `since` to timing[key], after a synchronise
+    on a card; returns now. A no-op without timing."""
+    if timing is None:
+        return since
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    now = time.perf_counter()
+    timing[key] = timing.get(key, 0.0) + now - since
+    return now
+
+
+def device_pair_scores(q_list, biases, t_flat, t_off, cand_t, cand_off,
+                       matrix_scores, gap_open: int = 16,
+                       gap_extend: int = 2, device="cuda") -> np.ndarray:
+    """int64 exact SW score of every candidate pair, in pair order: query
+    i against target cand_t[p] for p in cand_off[i]:cand_off[i + 1],
+    target t being t_flat[t_off[t]:t_off[t + 1]]. The GPU scoring
+    engine's entry: the whole target DB and every query profile go to
+    `device` once, the pairs in runs of at most PAIR_CHUNK, each scored
+    by sw_pairs."""
+    dev = torch.device(device)
+    timing = pair_timing
+    n = len(cand_t)
+    out = np.zeros(n, dtype=np.int64)
+    if n == 0:
+        return out
+    t_flat = np.ascontiguousarray(t_flat, dtype=np.uint8)
+    if len(t_flat) and int(t_flat.max()) >= matrix_scores.shape[1]:
+        raise ValueError("device_pair_scores: target letters must lie in "
+                         "the matrix's alphabet")
+    lap = time.perf_counter()
+    qp = pack_pair_queries(q_list, matrix_scores, biases, dev)
+    prof, q_stripe, q_len = qp["prof"], qp["q_stripe"], qp["q_len"]
+    lap = _lap(timing, "pack", lap, dev)
+    t_seqs = torch.from_numpy(np.concatenate(
+        [t_flat, np.zeros(T_PAD, dtype=np.uint8)])).to(dev)
+    t_off_d = torch.from_numpy(np.ascontiguousarray(t_off,
+                                                    dtype=np.int64)).to(dev)
+    cand_off = np.asarray(cand_off, dtype=np.int64)
+    lap = _lap(timing, "upload", lap, dev)
+    for p0 in range(0, n, PAIR_CHUNK):
+        p1 = min(n, p0 + PAIR_CHUNK)
+        k0 = int(np.searchsorted(cand_off, p0, side="right")) - 1
+        k1 = int(np.searchsorted(cand_off, p1, side="left"))
+        reps = (np.minimum(cand_off[k0 + 1:k1 + 1], p1)
+                - np.maximum(cand_off[k0:k1], p0))
+        pair_q = torch.from_numpy(np.repeat(
+            np.arange(k0, k1, dtype=np.int32), reps)).to(dev)
+        pair_t = torch.from_numpy(np.ascontiguousarray(
+            cand_t[p0:p1], dtype=np.int32)).to(dev)
+        lap = _lap(timing, "upload", lap, dev)
+        scores = sw_pairs(prof, q_stripe, q_len, t_seqs, t_off_d, pair_q,
+                          pair_t, gap_open, gap_extend)
+        lap = _lap(timing, "score", lap, dev)
+        out[p0:p1] = scores.cpu().numpy()
+        lap = _lap(timing, "read-back", lap, dev)
+    return out

@@ -240,6 +240,40 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
             use_dev_pf = (dense_prefilter_viable(nk_total, t_res, has_idx)
                           and _accelerator_present())
 
+    # Scoring engine choice. The accelerator pays a fixed in-process
+    # cost (runtime init + compiled-kernel load, seconds) plus
+    # per-dispatch packing; the host C aligner runs ~4e9 DP cells/s/
+    # core. The real alignment workload is set by the PREFILTER OUTPUT,
+    # not by |queries| x |DB| (the reference's own design premise: the
+    # prefilter exists to make alignment output-sensitive,
+    # Prefiltering.cpp:709-897). So: a cheap a-priori ceiling
+    # (every query hitting max_seqs average-length candidates) gates a
+    # two-phase path — prefilter first, then decide with exact
+    # candidate cells — while small workloads keep the fused
+    # prefilter+align path with no second fork.
+    q_res_total = int(sum(len(q_all[k]) for k in keys))
+    avg_t = t_res / max(len(t_aa), 1)
+    cells_ceiling = (q_res_total
+                     * min(params.prefilter.max_seqs, len(t_aa)) * avg_t)
+    use_tpu = params.use_tpu
+
+    batched_aln_ok = (params.align.max_accept == INT_MAX
+                      and params.align.max_rejected == INT_MAX
+                      and params.align.cov_thr == 0
+                      and params.align.seq_id_thr == 0
+                      and params.align.aln_len_thr == 0)
+    # A search that could go to a device engine imports torch, probes
+    # for a card and creates its CUDA context on a thread while the host
+    # builds its index and walks (the native walk releases the GIL):
+    # only on the batch route with batched alignment, where no fork
+    # follows the walk in this search (_run_keyed and
+    # _fork_reverse_search also wait for the thread before they fork).
+    if (use_batch and batched_aln_ok and not use_dev_pf and not split_mode
+            and use_tpu is not False
+            and (use_tpu or params.mesh is not None
+                 or cells_ceiling > _DEVICE_CELLS_THRESHOLD)):
+        _start_torch_probe()
+
     index = None
     save_thread = None
     masked = None
@@ -367,23 +401,6 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
                              enumerator, evaluer, _get_bias80(), q_all, keys)
         return _nucl_merge(prot, query_db, target_db, params)
 
-    # Scoring engine choice. The accelerator pays a fixed in-process
-    # cost (runtime init + compiled-kernel load, seconds) plus
-    # per-dispatch packing; the host C aligner runs ~4e9 DP cells/s/
-    # core. The real alignment workload is set by the PREFILTER OUTPUT,
-    # not by |queries| x |DB| (the reference's own design premise: the
-    # prefilter exists to make alignment output-sensitive,
-    # Prefiltering.cpp:709-897). So: a cheap a-priori ceiling
-    # (every query hitting max_seqs average-length candidates) gates a
-    # two-phase path — prefilter first, then decide with exact
-    # candidate cells — while small workloads keep the fused
-    # prefilter+align path with no second fork.
-    q_res_total = int(sum(len(q_all[k]) for k in keys))
-    avg_t = t_res / max(len(t_aa), 1)
-    cells_ceiling = (q_res_total
-                     * min(params.prefilter.max_seqs, len(t_aa)) * avg_t)
-    use_tpu = params.use_tpu
-
     def _device_engage(cells):
         return device_scoring_engages(use_tpu, params.mesh, cells)
 
@@ -395,11 +412,6 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
             or (cells_ceiling > _DEVICE_CELLS_THRESHOLD
                 and _accelerator_present())))
 
-    batched_aln_ok = (params.align.max_accept == INT_MAX
-                      and params.align.max_rejected == INT_MAX
-                      and params.align.cov_thr == 0
-                      and params.align.seq_id_thr == 0
-                      and params.align.aln_len_thr == 0)
     if two_phase or use_batch:
         if use_dev_pf:
             from ..ops.prefilter_dense import device_prefilter
@@ -464,14 +476,19 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
 # the GPU scoring engine. chip_smoke.py phase 3(b) on an NVIDIA H100 80GB
 # HBM3 (700 W power limit) timed the search stage of both engines under
 # `auto` (host prefilter, the control search forked onto the host), three
-# alternating fresh processes each, medians: at the phase-3 corpus
-# (82,039,218 candidate cells) GPU engine 18.010 s, host engine 6.486 s;
-# with its query side three times over (246,117,654 cells) 21.446 s and
-# 8.102 s. The GPU engine lost at both shapes, by a fixed cost (import
-# torch: 7.4-9.6 s in a fresh process) and per cell (2.09e-8 against
-# 9.85e-9 s), so its line never crosses the host engine's. The threshold
-# therefore lies above every measured shape (x4,000 the larger): `auto`
-# keeps the host engine, and --use-tpu 1 still forces the GPU engine.
+# alternating fresh processes each, medians, the GPU engine scoring the
+# candidate pairs alone (B1's pair-list entry) with torch imported on a
+# thread beside the host walk: at the phase-3 corpus (82,039,218
+# candidate cells) GPU engine 8.383 s, host engine 3.770 s; its query
+# side three times over (246,117,654) 10.757 s and 4.888 s; ten times
+# over (820,392,180) 19.093 s and 13.036 s. Lines fitted through the
+# three: GPU engine 7.18996 s + 1.4508e-8 s per cell, host engine
+# 2.26287 s + 1.29776e-8 s per cell. The GPU engine pays more per cell
+# (its bias and survivor alignment stay on the host) and more fixed
+# cost (the part of import torch the walk does not hide, 0-2.6 s), so
+# the lines never cross (they would at -3.2e9 cells). The threshold
+# therefore lies above every measured shape: `auto` keeps the host
+# engine, and --use-tpu 1 still forces the GPU engine.
 _DEVICE_CELLS_THRESHOLD = 1e12
 
 # Queries per native batch-driver dispatch: bounds the transient hit
@@ -497,6 +514,7 @@ def _run_keyed(fn, keys, n_threads, big: bool, label=None) -> dict:
         global _worker_fn
         _worker_fn = fn
         ctx = mp.get_context("fork")
+        _join_torch_probe()
         # many small chunks streamed with imap: load-balances uneven
         # queries and lets the parent tick progress as results land
         csize = max(1, min(256, len(keys) // (n_threads * 8)))
@@ -611,7 +629,66 @@ def _search_split(t_aa, packed, params, m40, enumerator, evaluer,
     return prot
 
 
+# The torch probe of this process, once started: (thread, its result
+# {"present": bool, or the exception it raised; "seconds": its time}).
+_torch_probe = None
+
+
+def _start_torch_probe():
+    """Import torch, probe for a card and create its CUDA context on a
+    thread, at most once per process (search_setdbs starts it before the
+    host prefilter walk of a search that could go to the card)."""
+    global _torch_probe
+    if _torch_probe is not None:
+        return
+    import threading
+    import time
+    result = {}
+
+    def probe():
+        t0 = time.perf_counter()
+        try:
+            import torch
+            result["present"] = torch.cuda.is_available()
+            if result["present"]:
+                torch.zeros(1, device="cuda")   # the CUDA context
+        except BaseException as exc:  # noqa: BLE001 - re-raised on join
+            result["present"] = exc
+        result["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=probe, name="torch-probe")
+    thread.start()
+    _torch_probe = (thread, result)
+
+
+def _join_torch_probe() -> float:
+    """Wait for the torch probe thread, if one was started; the seconds
+    waited. Every fork waits for it first: a child forked while it
+    imports could inherit a held import lock or a half-made CUDA
+    context."""
+    if _torch_probe is None or not _torch_probe[0].is_alive():
+        return 0.0
+    import time
+    t0 = time.perf_counter()
+    _torch_probe[0].join()
+    return time.perf_counter() - t0
+
+
 def _accelerator_present() -> bool:
+    """Whether a CUDA card is attached: the torch probe's answer when it
+    was started (joined here, its wait logged the first time), else a
+    direct probe."""
+    if _torch_probe is not None:
+        waited = _join_torch_probe()
+        result = _torch_probe[1]
+        if "waited" not in result:
+            result["waited"] = waited
+            log(2, f"torch probe: import, card probe and CUDA context "
+                   f"{result['seconds']:.3f} s on a thread; the search "
+                   f"waited {waited:.3f} s for it")
+        if isinstance(result["present"], BaseException):
+            raise result["present"]
+        return result["present"]
     import torch
     return torch.cuda.is_available()
 
@@ -708,21 +785,32 @@ def _key_blocks(cand_t, cand_off, max_cells) -> list:
 
 
 def _candidate_scores(q_list, t_aa, cand_t, cand_off, biases, m40,
-                      params) -> np.ndarray:
+                      params, t_packed=None) -> np.ndarray:
     """Exact SW score of every (query, candidate) pair, int64 in pair
-    order: B4 per shard on the mesh, B1 on a card, the torch scan on the
-    CPU. Keys go in blocks whose dense [block, union] matrix stays within
-    _MAX_MATRIX_CELLS: at catalog scale (30k+ query sets,
-    README.md:107-110) a single all-keys union matrix is the memory
+    order: B1's pair-list entry on a card (the pairs alone; t_packed =
+    (t_flat, t_off), the search's packed targets, is built from t_aa when
+    not given), B4 per shard on the mesh, the torch scan on the CPU. The
+    mesh and the scan take keys in blocks whose dense [block, union]
+    matrix stays within _MAX_MATRIX_CELLS: at catalog scale (30k+ query
+    sets, README.md:107-110) a single all-keys union matrix is the memory
     wall, and a block's union spans only the targets its queries hit."""
+    go, ge = params.align.gap_open, params.align.gap_extend
+    if params.mesh is None and _accelerator_present():
+        from ..ops.sw_packed import device_pair_scores
+        if t_packed is None:
+            t_off = np.zeros(len(t_aa) + 1, dtype=np.int64)
+            np.cumsum([len(t) for t in t_aa], out=t_off[1:])
+            t_packed = (np.concatenate(t_aa) if len(t_aa)
+                        else np.zeros(0, np.uint8), t_off)
+        return device_pair_scores(q_list, biases, t_packed[0], t_packed[1],
+                                  cand_t, cand_off, m40.scores, go, ge,
+                                  device="cuda")
     out = np.zeros(len(cand_t), dtype=np.int64)
     mesh = None
     if params.mesh is not None:
         from ..parallel.sharding import make_mesh
         # on the CUDA devices when a GPU is present, else on the CPU
         mesh = make_mesh(*params.mesh)
-    on_gpu = _accelerator_present()
-    go, ge = params.align.gap_open, params.align.gap_extend
     for k0, k1 in _key_blocks(cand_t, cand_off, _MAX_MATRIX_CELLS):
         p0, p1 = int(cand_off[k0]), int(cand_off[k1])
         if p0 == p1:
@@ -737,12 +825,6 @@ def _candidate_scores(q_list, t_aa, cand_t, cand_off, biases, m40,
             scores = sharded_allpairs_scores(
                 mesh, q_blk, [t_aa[t] for t in union.tolist()], m40.scores,
                 bias_list=b_blk, gap_open=go, gap_extend=ge)
-            out[p0:p1] = scores[rows, cols]
-        elif on_gpu:
-            from ..ops.sw_packed import device_allpairs_scores
-            scores = device_allpairs_scores(
-                q_blk, [t_aa[t] for t in union.tolist()], m40.scores,
-                bias_list=b_blk, gap_open=go, gap_extend=ge, device="cuda")
             out[p0:p1] = scores[rows, cols]
         else:
             # no GPU: the bucketed torch scan on the CPU, pair by pair
@@ -789,8 +871,8 @@ def _search_tpu(keys, t_aa, t_packed, cand_arrays, q_all, m40, evaluer,
     """Device scoring engine: candidates come from the host prefilter
     (order-dependent integer heuristics, QueryMatcher.cpp:84-323) as raw
     arrays, cand_arrays=(cand_t, cand_off) with keys[i]'s candidates at
-    cand_t[cand_off[i]:cand_off[i + 1]]; the device bulk-scores every
-    (query x candidate-target) cell in packed dispatches, and the exact
+    cand_t[cand_off[i]:cand_off[i + 1]]; the device scores every
+    candidate pair (_candidate_scores), and the exact
     host alignment runs only on E-value survivors — output-identical to
     the host path (the device scores are cell-exact,
     tests/test_sw_packed.py).
@@ -810,7 +892,7 @@ def _search_tpu(keys, t_aa, t_packed, cand_arrays, q_all, m40, evaluer,
     else:
         biases = [np.zeros(len(q), dtype=np.int64) for q in q_list]
     scores = _candidate_scores(q_list, t_aa, cand_t, cand_off, biases, m40,
-                               params)
+                               params, t_packed=t_packed)
     a = params.align
     if (a.max_accept == INT_MAX and a.max_rejected == INT_MAX
             and a.cov_thr == 0 and a.seq_id_thr == 0
@@ -874,6 +956,7 @@ def _fork_reverse_search(cache, query_db, control_db, params):
         return None
     if params.use_tpu or params.mesh is not None or params.trace_dir:
         return None
+    _join_torch_probe()
     if _cuda_initialized():
         return None
     cache.flush()     # no writer threads may cross the fork

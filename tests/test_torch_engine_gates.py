@@ -96,11 +96,13 @@ def test_use_tpu_0_keeps_auto_off_the_card(monkeypatch, golden_dbs):
 
 
 @pytest.mark.parametrize("cells,engages", [
-    # the golden bundle, and chip_smoke.py phase 3(b)'s two shapes, where
-    # the host engine's search stage was the faster
+    # the golden bundle, and chip_smoke.py phase 3(b)'s three shapes,
+    # where the host engine's search stage was the faster and the fitted
+    # lines do not cross
     pytest.param(26_100, False, id="golden"),
     pytest.param(82_039_218, False, id="phase3_corpus"),
     pytest.param(246_117_654, False, id="phase3_corpus_x3"),
+    pytest.param(820_392_180, False, id="phase3_corpus_x10"),
     # just above the TPU's break-even (3e10), where `auto` used to send
     # a search on a card to the GPU engine
     pytest.param(3e10 + 1, False, id="tpu_break_even"),
@@ -166,3 +168,112 @@ def test_auto_scoring_route_takes_the_card_above_threshold(monkeypatch,
     seen, ran = _scoring_route(monkeypatch, golden_dbs, threshold=1000)
     assert len(seen) == 1 and seen[0] > 1000
     assert ran == [golden_dbs[0].n_orfs]
+
+
+# ------------------------------------- the torch probe beside the host walk
+
+@pytest.mark.parametrize("use_tpu,threshold,started", [
+    pytest.param(False, 1e5, False, id="use_tpu_0"),
+    # the golden ceiling (~1e8 cells) lies under the threshold in the code
+    pytest.param(None, None, False, id="ceiling_under_threshold"),
+    pytest.param(None, 1e5, True, id="ceiling_over_threshold"),
+    pytest.param(True, None, True, id="use_tpu_1"),
+])
+def test_torch_probe_starts_only_when_the_card_could_score(
+        monkeypatch, golden_dbs, use_tpu, threshold, started):
+    """search_setdbs starts the probe thread before the host walk only
+    when use_tpu is not False and either use_tpu is set or the a-priori
+    cell ceiling is above _DEVICE_CELLS_THRESHOLD."""
+    starts = []
+    monkeypatch.setattr(pm, "_start_torch_probe", lambda: starts.append(1))
+    if threshold is not None:
+        monkeypatch.setattr(pm, "_DEVICE_CELLS_THRESHOLD", threshold)
+    qdb, tdb = golden_dbs
+    pm.search_setdbs(qdb, tdb, pm.PredictParams(use_tpu=use_tpu,
+                                                perform_nucl_aln=False))
+    assert starts == ([1] if started else [])
+
+
+def test_torch_probe_answers_the_card_probe(monkeypatch):
+    """The thread imports torch and probes; _accelerator_present joins it
+    and gives its answer, and a second start is a no-op."""
+    import torch
+    monkeypatch.setattr(pm, "_torch_probe", None)
+    pm._start_torch_probe()
+    probe = pm._torch_probe
+    pm._start_torch_probe()
+    assert pm._torch_probe is probe
+    assert pm._accelerator_present() is torch.cuda.is_available()
+    thread, result = probe
+    assert not thread.is_alive()
+    assert result["seconds"] >= 0 and result["waited"] >= 0
+
+
+class _RunningProbe:
+    """A probe thread that runs until joined; records the join."""
+
+    def __init__(self, events):
+        self.events, self.alive = events, True
+
+    def is_alive(self):
+        return self.alive
+
+    def join(self):
+        self.events.append("join")
+        self.alive = False
+
+
+def test_forks_wait_for_the_torch_probe(monkeypatch):
+    """No fork while the probe thread runs: _run_keyed's fork pool and
+    _fork_reverse_search join it first."""
+    events = []
+    real_fork = os.fork
+
+    def fork():
+        events.append("fork")
+        return real_fork()
+
+    monkeypatch.setattr(os, "fork", fork)
+    monkeypatch.setattr(pm, "_torch_probe",
+                        (_RunningProbe(events), {"present": False}))
+    out = pm._run_keyed(lambda k: k * 2, list(range(40)), 2, True)
+    assert out == {k: k * 2 for k in range(40)}
+    assert events[0] == "join" and events.count("fork") >= 2
+
+    class Cache:
+        def has(self, name):
+            return False
+
+        def flush(self):
+            pass
+
+    events.clear()
+    monkeypatch.setattr(os, "fork", lambda: events.append("fork") or 4242)
+    monkeypatch.setattr(pm, "_torch_probe",
+                        (_RunningProbe(events), {"present": False}))
+    assert pm._fork_reverse_search(Cache(), None, None,
+                                   pm.PredictParams()) == 4242
+    assert events == ["join", "fork"]
+
+
+def test_host_engine_text_unchanged_beside_the_probe(monkeypatch, golden):
+    """A search that `auto` sends to the host engine while the probe runs
+    (the ceiling over a lowered threshold, the candidate cells under it):
+    the golden bytes, the probe started, and no card probe asked of it."""
+    (qpath,) = {os.path.realpath(p) for p in
+                glob.glob(os.path.join(golden, "tmp", "*", "qsetdb"))}
+    dbs = [SetDB.load(p) for p in (qpath, os.path.join(golden, "targets"),
+                                   os.path.join(golden, "targets_rev"))]
+
+    def never(*a, **kw):
+        raise AssertionError("the host route asked the card")
+
+    monkeypatch.setattr(pm, "_torch_probe", None)
+    monkeypatch.setattr(pm, "_DEVICE_CELLS_THRESHOLD", 1e5)
+    monkeypatch.setattr(pm, "_accelerator_present", never)
+    monkeypatch.setattr(pm, "_search_tpu", never)
+    res = pm.predict_match(*dbs, pm.PredictParams())
+    with open(os.path.join(golden, "result.tsv")) as fh:
+        assert res.text == fh.read()
+    assert pm._torch_probe is not None
+    pm._torch_probe[0].join()
