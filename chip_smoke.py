@@ -5,13 +5,13 @@
 
 Phase 0  requires CUDA, prints the card (nvidia-smi) and builds the
          hand-written kernels (csrc/sw_allpairs.cu with B1's dense and
-         pair-list entries, csrc/prefilter_dense.cu and csrc/sw_dense.cu,
-         one nvcc each, in parallel, sm_90a), printing each entry's
-         registers and spills, and counts in the SASS of the built
-         libraries (cuobjdump -sass), per kernel function, the DPX
-         min/max opcodes of sw_allpairs and sw_dense and the integer MMA
-         opcodes of prefilter_dense; it fails if the emit kernel has no
-         IMMA.
+         pair-list entries, csrc/pair_profile.cu, csrc/prefilter_dense.cu
+         and csrc/sw_dense.cu, one nvcc each, in parallel, sm_90a),
+         printing each entry's registers and spills, and counts in the
+         SASS of the built libraries (cuobjdump -sass), per kernel
+         function, the DPX min/max opcodes of sw_allpairs and sw_dense,
+         the float64 opcodes of pair_profile and the integer MMA opcodes
+         of prefilter_dense; it fails if the emit kernel has no IMMA.
 Phase 1  holds B1's dense entry against its plain PyTorch version on the
          card, exactly, on the test corpora and on a production-shaped
          workload (the golden bundle's 305 query ORFs x 691 target ORFs,
@@ -30,23 +30,28 @@ Phase 3  builds a real-size corpus from the golden bundle and --seed
          prefilter (in this process, so the kernel's launches are
          counted), each on its own copy of the DBs; both texts must
          agree, and the GPU run's _search_tpu prints where its time goes
-         (bias, scoring, E-value screen, survivor alignment), the scoring
-         step's own split (profile packing, uploads, the pair kernel's
+         (host bias, scoring, E-value screen, survivor alignment), the
+         scoring step's own split (the query profiles with their
+         composition bias built on the card, uploads, the pair kernel's
          sort and launches, read-back; the kernel alone by CUDA events)
-         and the torch probe's wait. Every candidate pair the pair kernel
-         scored is then held against its plain version on the card, the
-         kernel is timed alone at the first search's pairs beside its
-         bound, and the distinct profile words per warp load are counted.
-         It prints the auto gate's prefilter choice for the corpus's
-         shape. (b) fits the auto gates' host terms on the card's host:
-         the host walk's postings build and k-mer walk (GATE_RUNS fresh
-         processes, medians), and the scoring gate's break-even in
-         candidate cells from the search stage of the GPU and host
-         engines under `auto` (the gate forced each way, the host
-         prefilter), GATE_RUNS alternating fresh runs each at phase 3's
-         corpus and at its query side GATE_COPIES and GATE_BIG_COPIES
-         times over, texts equal, a line fitted through each engine's
-         medians.
+         and the torch probe's wait. Every query profile the profile
+         kernel built (every query of both searches) and every candidate
+         pair the pair kernel scored are then held against their plain
+         versions on the card, each kernel is timed alone at the first
+         search's inputs beside its bound, and the distinct profile words
+         per warp load are counted. It prints the auto gate's prefilter
+         choice for the corpus's shape. (b) fits the auto gates' host
+         terms on the card's host: the host walk's postings build and
+         k-mer walk (GATE_RUNS fresh processes, medians), and the scoring
+         gate's break-even in candidate cells from the search stage of
+         the GPU and host engines under `auto` (the gate forced each way,
+         the host prefilter), alternating fresh runs (GATE_SHAPE_RUNS per
+         engine) at phase 3's corpus and at its query side
+         GATE_BIG_COPIES and GATE_HUGE_COPIES times over, texts equal, a
+         line fitted through each engine's medians; and at one point on
+         the target axis (phase 3's query side against GATE_TARGET_COPIES
+         mutated copies of each golden genome) both engines' medians
+         beside the lines' predictions for its candidate cells.
 Phase 4  the dense prefilter's kernels (counts and emit): (a) against
          their plain versions, exactly (the emit against the plain emit
          of all rows and of the compacted rows, as a set per tile), on
@@ -57,7 +62,9 @@ Phase 4  the dense prefilter's kernels (counts and emit): (a) against
          on the compacted rows, the emit also at other run caps; the
          compaction and the emit's run starts apart; the counts' wrapper
          with the compaction and the emit's with its run starts and
-         check), with each kernel's share of its bound and two
+         check), with each kernel's share of its bound, torch._int_mm
+         on the same compacted int8 product in column blocks (the
+         library yardstick; the port never calls it), and two
          of the auto gate's constants
          (the whole dense pass's cells per second, and the fixed cost of
          a dense run in a fresh process); (c) `predictmatch` through the
@@ -115,7 +122,12 @@ Phase 6  the product surface as a user runs it, through the launcher
 Each kernel's entry in the report carries its bound: the larger of its
 bytes (every input read once, every output written once) over 3.35 TB/s
 and its operations over the card's rate for their type, both counted for
-what this run's inputs need. The SW kernels count the profile rows within
+what this run's inputs need. The profile kernel counts its letters, query
+offsets, matrix and table read and its int8 profile written as bytes, and
+FLOAT64_OPS_PER_RESIDUE float64 operations per residue over the card's
+float64 rate (and one int32 operation per window term and profile entry
+over its int32 rate, the larger of the two). The SW kernels count the
+profile rows within
 each query's length, each target's true letters, the lengths and the
 scores as bytes (the pair entry: the int8 rows of the queries its pairs
 name, the letters of the targets they name, and the pair list), and
@@ -151,6 +163,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {   # library name -> (source, the TPU kernel it replaces)
     "sw_allpairs": ("spacepharer_tpu_torch/csrc/sw_allpairs.cu",
                     "spacepharer_tpu/ops/sw_packed.py:81"),
+    # no TPU kernel: the JAX package's host loop over sw_bias_i8
+    "pair_profile": ("spacepharer_tpu_torch/csrc/pair_profile.cu",
+                     "spacepharer_tpu/pipeline/predictmatch.py:602"),
     "prefilter_dense": ("spacepharer_tpu_torch/csrc/prefilter_dense.cu",
                         "spacepharer_tpu/ops/prefilter_dense.py:256"),
     "sw_dense": ("spacepharer_tpu_torch/csrc/sw_dense.cu",
@@ -164,12 +179,20 @@ COPIES = 100          # mutated copies of each golden genome (phase 3)
 SETS = 2000           # random spacer sets added to the golden ones
 SMALL_SETS = 20       # random sets of phase 4(d)'s small query side
 CHECK_ROWS = 16       # query rows of phase 5's largest block checked
-GATE_COPIES = 3       # phase 3(b): copies of the query side, second shape
-GATE_RUNS = 3         # phase 3(b): alternating runs per shape and engine
+GATE_RUNS = 3         # phase 3(b): fresh host-walk probes
 P1_DUP = 20           # phase 1: golden target ORFs repeated this often
 P1_KERNEL_CALLS = 10  # phase 1: calls per timed kernel chain
 P3_PAIR_CALLS = 10    # phase 3: calls of the pair kernel timed alone
-GATE_BIG_COPIES = 10  # phase 3(b): copies of the query side, third shape
+GATE_BIG_COPIES = 10  # phase 3(b): copies of the query side, second shape
+GATE_HUGE_COPIES = 30  # phase 3(b): copies of the query side, third shape
+GATE_TARGET_COPIES = 300  # phase 3(b): mutated copies of each genome, the
+                          # target-axis point (3 x COPIES)
+# phase 3(b): alternating fresh runs per engine at each query-side shape
+# (copies) and at the target-axis point ("t"); one run at x30, whose two
+# runs per engine took ~340 s of the phase's 679 s on an NVIDIA H100 80GB
+# HBM3 (700 W) machine
+GATE_SHAPE_RUNS = {1: 3, GATE_BIG_COPIES: 2, GATE_HUGE_COPIES: 1, "t": 2}
+P3_PROFILE_CALLS = 20  # phase 3: calls of the profile kernel timed alone
 P4_KERNEL_CALLS = 3   # phase 4(b): calls per timed kernel chain
 P5_KERNEL_CALLS = 5   # phase 5(b): calls per timed kernel chain
 # SASS opcodes counted per kernel function in phase 0: the min/max family
@@ -177,12 +200,17 @@ P5_KERNEL_CALLS = 5   # phase 5(b): calls per timed kernel chain
 # them) and the integer MMA of prefilter_dense
 SASS_COUNTED = {"sw_dense": re.compile(r"MNMX"),
                 "sw_allpairs": re.compile(r"MNMX"),
+                "pair_profile": re.compile(r"^D(ADD|MUL|FMA)|^MUFU"),
                 "prefilter_dense": re.compile(r"^IMMA|^LDSM")}
 # phase 4(b): emit run caps timed beside prefilter_dense.EMIT_RUN
 EMIT_RUN_SWEEP = (16, 32, 64, 128, 256)
 # the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+FLOAT64_OPS_PER_S = 3.4e13      # outside the tensor cores
+# least float64 operations per residue of the profile kernel's bias: the
+# divide, the add of the expected score, the +-0.5 and the floor or ceil
+FLOAT64_OPS_PER_RESIDUE = 4
 SMS, INT32_LANES = 132, 64
 # least int32 operations per true SW cell (a DPX add-max or three-way max
 # counts as one): h_pre = addmax(diag, S, E); t = h_pre - go;
@@ -461,27 +489,12 @@ def build_corpus(golden, tmp, seed):
     {run: [query, targets, targets_rev]} for the runs host, gpu, dense,
     dense_fresh and mesh (the whole query side), gate (never searched:
     phase 3(b) copies it) and host_small and dense_small."""
-    from spacepharer_tpu_torch.io.setdb import (SetDB, build_setdb_from_fasta,
+    from spacepharer_tpu_torch.io.setdb import (SetDB,
                                                 build_setdb_from_spacers)
     from spacepharer_tpu_torch.io.spacer_formats import SpacerRecord
     rng = np.random.default_rng(seed)
-    gdb = SetDB.load(os.path.join(golden, "targets"))
-    fa_dir = os.path.join(tmp, "genomes")
-    os.makedirs(fa_dir)
-    files, nt = [], 0
-    for c in range(gdb.n_contigs):
-        seq = gdb.contig_seq(c)
-        acc = gdb.contig_accession[c]
-        for ci in range(COPIES):
-            mseq = _mutate(seq, 0.02, rng)
-            path = os.path.join(fa_dir, f"{acc}_mut{ci:05d}.fna")
-            with open(path, "wb") as fh:
-                fh.write(f">{acc}_mut{ci:05d} mutated copy {ci}\n".encode()
-                         + mseq.tobytes() + b"\n")
-            files.append(path)
-            nt += len(mseq)
-    tdb = build_setdb_from_fasta(files)
-    cdb = build_setdb_from_fasta(files, reverse_fragments=True)
+    tdb, cdb, n_files, nt = mutated_targets(
+        golden, os.path.join(tmp, "genomes"), COPIES, rng)
 
     qg = SetDB.load(_golden_query_path(golden))
     records = [SpacerRecord(qg.contig_header[i], qg.contig_accession[i],
@@ -511,9 +524,33 @@ def build_corpus(golden, tmp, seed):
                          ("targets_rev", cdb)):
             paths[run].append(os.path.join(tmp, run, name))
             db.save(paths[run][-1])
-    print(f"phase3 corpus: {len(files)} genomes, {nt} nt, {tdb.n_orfs} "
+    print(f"phase3 corpus: {n_files} genomes, {nt} nt, {tdb.n_orfs} "
           f"target ORFs; {len(names)} spacer sets, {qdb.n_orfs} query ORFs")
     return paths
+
+
+def mutated_targets(golden, fa_dir, copies, rng):
+    """The target and control SetDBs of `copies` 2%-mutated copies of
+    each golden genome (written as FASTAs under fa_dir), drawn from rng
+    genome by genome; (targets, control, genomes, nucleotides)."""
+    from spacepharer_tpu_torch.io.setdb import SetDB, build_setdb_from_fasta
+    gdb = SetDB.load(os.path.join(golden, "targets"))
+    os.makedirs(fa_dir)
+    files, nt = [], 0
+    for c in range(gdb.n_contigs):
+        seq = gdb.contig_seq(c)
+        acc = gdb.contig_accession[c]
+        for ci in range(copies):
+            mseq = _mutate(seq, 0.02, rng)
+            path = os.path.join(fa_dir, f"{acc}_mut{ci:05d}.fna")
+            with open(path, "wb") as fh:
+                fh.write(f">{acc}_mut{ci:05d} mutated copy {ci}\n".encode()
+                         + mseq.tobytes() + b"\n")
+            files.append(path)
+            nt += len(mseq)
+    return (build_setdb_from_fasta(files),
+            build_setdb_from_fasta(files, reverse_fragments=True),
+            len(files), nt)
 
 
 def _profile_words_per_load(args):
@@ -561,22 +598,52 @@ def _pair_work(args):
     return n_bytes, cells
 
 
-def _check_pairs(calls):
-    """Hold the pair kernel's output of every sw_pairs call recorded on
-    the main path (both searches, every candidate pair) against
-    sw_pairs_plain on the card, on the same inputs. Returns (max |kernel -
-    plain|, the plain version's ms on the first call)."""
+def _profile_work(args):
+    """(bytes, float64 operations, int32 operations) of one pair_profile
+    call: its letters, query offsets and stripes, matrix and table read
+    once and its int8 profile and flag written once; FLOAT64_OPS_PER_RESIDUE
+    float64 operations per residue, and one int32 operation per window
+    term and per profile entry (composition bias on)."""
     import torch
-    from spacepharer_tpu_torch.ops import sw_packed
+    letters, q_off, q_stripe, n_stripes, scores, expected, comp_bias = args
+    total, n_q, alpha = letters.numel(), q_stripe.numel(), scores.shape[0]
+    n_bytes = (total + 16 * n_q + 8 + 4 * alpha * alpha + 8 * alpha
+               + n_stripes * 32 * 16 + 4)
+    lens = (q_off[1:] - q_off[:-1]).long()
+    n = torch.repeat_interleave(lens, lens, output_size=total)
+    i = torch.arange(total, device=n.device) - torch.repeat_interleave(
+        q_off[:-1], lens, output_size=total)
+    win = torch.minimum(n, i + 20) - torch.clamp_min(i - 20, 0)
+    f64 = FLOAT64_OPS_PER_RESIDUE * total if comp_bias else 0
+    return n_bytes, f64, (int(win.sum()) if comp_bias else 0) + alpha * total
+
+
+def _profile_bound(work, clock_hz):
+    """(bound ms, "bytes" or "operations") of _profile_work's work: the
+    larger of its bytes' time and its slower operation type's time."""
+    n_bytes, f64, i32 = work
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(f64 / FLOAT64_OPS_PER_S, i32 / (SMS * INT32_LANES * clock_hz))
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _check_calls(calls, plain):
+    """Hold each kernel call recorded on the main path, (args, output),
+    against plain(*args) on the card, on the same inputs. Returns (max
+    |kernel - plain|, the plain version's ms on the first call)."""
+    import torch
     err, plain_ms = 0, []
-    for args, go, ge, kernel_out in calls:
+    for args, kernel_out in calls:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ref = sw_packed.sw_pairs_plain(*args, go, ge)
+        ref = plain(*args)
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
+        if ref.shape != kernel_out.shape:
+            raise AssertionError("kernel and plain output shapes differ")
         if ref.numel():
-            err = max(err, int((kernel_out - ref).abs().max()))
+            err = max(err, int((kernel_out.int() - ref.int()).abs().max()))
     return err, plain_ms[0]
 
 
@@ -612,14 +679,20 @@ def phase3(golden, tmp, seed, clock_hz):
 
     # GPU engine forced on, in this process: count launches and the
     # candidate cells the device engine is handed, keep every pair-kernel
-    # call's inputs and output for _check_pairs, and split the scoring step
-    cand_cells, calls = [], []
+    # call's inputs and output for _check_calls, and split the scoring step
+    cand_cells, calls, prof_calls = [], [], []
     search_tpu = pm._search_tpu
     pairs = sw_packed.sw_pairs
+    profile = sw_packed.pair_profile
 
     def _kept(*a):
         out = pairs(*a)
-        calls.append((a[:7], a[7], a[8], out.clone()))
+        calls.append((a[:9], out.clone()))
+        return out
+
+    def _kept_profile(*a, comp_bias):
+        out = profile(*a, comp_bias=comp_bias)
+        prof_calls.append((a + (comp_bias,), out.clone()))
         return out
 
     def _counted(keys, t_aa, t_packed, cand, q_all, *a, **kw):
@@ -631,8 +704,10 @@ def phase3(golden, tmp, seed, clock_hz):
     gpu_out = os.path.join(base, "gpu.tsv")
     pm._search_tpu = _counted
     sw_packed.sw_pairs = _kept
+    sw_packed.pair_profile = _kept_profile
     sw_packed.launches = sw_packed.cells = 0
     sw_packed.pair_launches = sw_packed.pair_cells = 0
+    sw_packed.profile_launches = 0
     sw_packed.pair_timing, sw_packed.launch_events = {}, []
     before = timings()
     split = {}
@@ -646,11 +721,13 @@ def phase3(golden, tmp, seed, clock_hz):
     finally:
         pm._search_tpu = search_tpu
         sw_packed.sw_pairs = pairs
+        sw_packed.pair_profile = profile
         pair_split, events = sw_packed.pair_timing, sw_packed.launch_events
         sw_packed.pair_timing = sw_packed.launch_events = None
     gpu_wall = time.perf_counter() - t0
     launches = {"sw_pairs": sw_packed.pair_launches,
-                "sw_allpairs": sw_packed.launches}
+                "sw_allpairs": sw_packed.launches,
+                "pair_profile": sw_packed.profile_launches}
     pair_cells = sw_packed.pair_cells
     after = timings()
     if rc != 0:
@@ -680,11 +757,39 @@ def phase3(golden, tmp, seed, clock_hz):
           f"{len(gpu_text)} bytes, {n_hits} hit lines")
     if host_text != gpu_text:
         raise AssertionError("phase3: host and GPU texts differ")
-    if launches["sw_pairs"] <= 0 or launches["sw_allpairs"]:
+    if (launches["sw_pairs"] <= 0 or launches["sw_allpairs"]
+            or launches["pair_profile"] <= 0):
         raise AssertionError(f"phase3: launches {launches} (the pair "
-                             "entry alone must launch)")
-    err, plain_ms = _check_pairs(calls)
-    args, go, ge, _ = calls[0]
+                             "entry and the profile kernel alone must "
+                             "launch)")
+    if split.get("bias", 0.0):
+        raise AssertionError("phase3: the GPU engine built a bias on the "
+                             "host")
+    # every query of both searches: one profile call per search
+    p_err, p_plain_ms = _check_calls(
+        prof_calls, lambda *a: sw_packed.pair_profile_plain(*a)[0])
+    p_args = prof_calls[0][0]
+    p_ms = [_kernel_ms(sw_packed, sw_packed.pair_profile, p_args,
+                       P3_PROFILE_CALLS, "profile_events")[0]
+            for _ in range(2)]
+    p_bound = _profile_bound(_profile_work(p_args), clock_hz)
+    print(f"phase3 profile kernel (bias and profile in one pass) on every "
+          f"query of both searches ({[c[0][2].numel() for c in prof_calls]}"
+          f" queries, {[c[0][0].numel() for c in prof_calls]} residues): "
+          f"max|kernel-plain| = {p_err}; first search: kernel alone ms "
+          f"{p_ms}, bound {p_bound[0]:.6f} ms ({p_bound[1]}), share "
+          f"{p_bound[0] / min(p_ms):.4f}; plain on the card "
+          f"{p_plain_ms:.3f} ms")
+    print(f"phase3 bias step over both searches: host _query_bias_i8 "
+          f"{split.get('bias', 0.0):.4f} s; the "
+          f"query profiles with their bias on the card "
+          f"{pair_split.get('profile', 0.0):.4f} s (each ended by a "
+          f"synchronise); _search_tpu {split.get('_search_tpu', 0.0):.3f} s")
+    if p_err:
+        raise AssertionError("phase3: profile kernel output != plain")
+    # every candidate pair of both searches
+    err, plain_ms = _check_calls(calls, sw_packed.sw_pairs_plain)
+    args, (go, ge) = calls[0][0][:7], calls[0][0][7:9]
     k_ms = [_kernel_ms(sw_packed, sw_packed.sw_pairs, args + (go, ge),
                        P3_PAIR_CALLS)[0] for _ in range(2)]
     n_bytes, cells = _pair_work(args)
@@ -707,6 +812,8 @@ def phase3(golden, tmp, seed, clock_hz):
             "gpu_wall": gpu_wall, "pair_cells": pair_cells,
             "max_abs_err": err, "ms": min(k_ms), "plain_ms": plain_ms,
             "bound": bound, "base": base, "paths": paths,
+            "profile": {"max_abs_err": p_err, "ms": min(p_ms),
+                        "plain_ms": p_plain_ms, "bound": p_bound},
             "host_text": host_text, "cand_cells": cand_cells}
 
 
@@ -839,9 +946,9 @@ def _forced_run(src, dest, engine, *flags):
     """predictmatch in a fresh process on a fresh copy (src copied to
     dest: no persisted index, no cached stage) with `auto` gates and the
     host prefilter, the scoring engine forced to engine ("gpu" or
-    "host") through auto_run: (wall s, search stage s, text, the engine
-    the search took, None or the torch probe's (thread s, the search's
-    wait s))."""
+    "host") through auto_run: (wall s, search stage s, text, [(candidate
+    cells, the engine the search took)], None or the torch probe's
+    (thread s, the search's wait s))."""
     shutil.copytree(src, dest)
     argv = ["predictmatch", *(os.path.join(dest, n) for n in
                               ("query", "targets", "targets_rev")),
@@ -857,7 +964,8 @@ def _forced_run(src, dest, engine, *flags):
         raise AssertionError(f"{dest} exited {proc.returncode}:\n"
                              f"{proc.stderr[-4000:]}")
     search = re.search(r"Time for search: ([0-9.]+)s", proc.stdout)
-    took = re.findall(r"-> (\w+) scoring engine", proc.stderr)
+    took = re.findall(r"candidate cells (\d+) -> (\w+) scoring engine",
+                      proc.stderr)
     probe = re.search(r"torch probe: .* ([0-9.]+) s on a thread; the "
                       r"search waited ([0-9.]+) s", proc.stderr)
     with open(os.path.join(dest, "result.tsv")) as fh:
@@ -867,28 +975,52 @@ def _forced_run(src, dest, engine, *flags):
             probe and tuple(float(v) for v in probe.groups()))
 
 
-def phase3_gates(p3):
+def _shape(shape):
+    """A phase 3(b) shape's label: its query-side copies, or the target
+    axis' point."""
+    return (f"x{shape}" if shape != "t"
+            else f"target-axis x{GATE_TARGET_COPIES // COPIES}")
+
+
+def phase3_gates(p3, golden, seed):
     """(b): the auto gates' host terms and the scoring engine's
     break-even, on the card's host. The host walk's postings build and
     k-mer walk in GATE_RUNS fresh processes (medians); then the search
     stage of the GPU engine and of the host engine, both under `auto`
     with the host prefilter (each forks its control search onto the
-    host), GATE_RUNS alternating fresh runs per engine at three shapes:
-    phase 3's corpus and its query side GATE_COPIES and GATE_BIG_COPIES
-    times over (the same target), on fresh DB copies. Every text must
-    equal the first host text of its shape. The break-even is where the
-    two engines' least-squares lines through their medians cross, in
-    candidate cells."""
+    host), GATE_SHAPE_RUNS alternating fresh runs per engine and shape on
+    fresh DB copies: phase 3's corpus and its query side GATE_BIG_COPIES
+    and GATE_HUGE_COPIES times over (the same target), and the target
+    axis' point, phase 3's query side against GATE_TARGET_COPIES mutated
+    copies of each golden genome. Every text must equal the first host
+    text of its shape. The break-even is where the two engines'
+    least-squares lines through the query-side medians cross, in
+    candidate cells; the target-axis point's medians print beside the
+    lines' predictions for its candidate cells."""
     from spacepharer_tpu_torch.pipeline import predictmatch as pm
+    t_phase = time.perf_counter()
     base = os.path.join(p3["base"], "gates")
     pristine = {1: p3["paths"]["gate"][0].rsplit(os.sep, 1)[0]}
-    for copies in (GATE_COPIES, GATE_BIG_COPIES):
+    for copies in (GATE_BIG_COPIES, GATE_HUGE_COPIES):
         big = os.path.join(base, f"x{copies}")
         shutil.copytree(pristine[1], big,
                         ignore=shutil.ignore_patterns("query"))
         _gate_queries(os.path.join(pristine[1], "query"),
                       os.path.join(big, "query"), copies)
         pristine[copies] = big
+    t_dir = os.path.join(base, "t")
+    shutil.copytree(pristine[1], t_dir,
+                    ignore=shutil.ignore_patterns("targets*"))
+    genomes = os.path.join(base, "t_genomes")
+    tdb, cdb, n_files, nt = mutated_targets(
+        golden, genomes, GATE_TARGET_COPIES, np.random.default_rng(seed))
+    tdb.save(os.path.join(t_dir, "targets"))
+    cdb.save(os.path.join(t_dir, "targets_rev"))
+    shutil.rmtree(genomes)
+    pristine["t"] = t_dir
+    print(f"phase3 gate target-axis corpus: {n_files} genomes, {nt} nt, "
+          f"{tdb.n_orfs} target ORFs, {int(tdb.orf_aa_offsets[-1])} "
+          f"residues (built in {time.perf_counter() - t_phase:.1f} s)")
 
     probes = []
     for _ in range(GATE_RUNS):
@@ -924,50 +1056,68 @@ def phase3_gates(p3):
 
     cells_1 = p3["cand_cells"][0]
     runs = {(c, e): [] for c in pristine for e in ("gpu", "host")}
-    texts = {}
-    for rep in range(GATE_RUNS):
-        for copies, src in pristine.items():
+    texts, cells = {}, {}
+    for rep in range(max(GATE_SHAPE_RUNS.values())):
+        for shape, src in pristine.items():
+            if rep >= GATE_SHAPE_RUNS[shape]:
+                continue
             order = ("gpu", "host") if rep % 2 == 0 else ("host", "gpu")
             for engine in order:
                 wall, search, text, took, probe = _forced_run(
-                    src, os.path.join(base, f"x{copies}_{engine}_{rep}"),
+                    src, os.path.join(base, f"{shape}_{engine}_{rep}"),
                     engine)
                 want = "device" if engine == "gpu" else "host"
-                if not took or took[0] != want:
-                    raise AssertionError(f"phase3 gate run x{copies} "
+                if not took or took[0][1] != want:
+                    raise AssertionError(f"phase3 gate run {_shape(shape)} "
                                          f"{engine}: engine {took}")
-                if texts.setdefault(copies, text) != text:
-                    raise AssertionError(f"phase3 gate run x{copies} "
+                if texts.setdefault(shape, text) != text:
+                    raise AssertionError(f"phase3 gate run {_shape(shape)} "
                                          f"{engine}: text differs")
-                runs[(copies, engine)].append((wall, search, probe))
+                cells.setdefault(shape, int(took[0][0]))
+                runs[(shape, engine)].append((wall, search, probe))
     if texts[1] != p3["host_text"]:
         raise AssertionError("phase3 gate runs: text differs from phase 3's")
+    if cells[1] != cells_1:
+        raise AssertionError(f"phase3 gate runs: {cells[1]} candidate "
+                             f"cells, phase 3 counted {cells_1}")
     med = {}
-    for (copies, engine), rr in runs.items():
-        med[(copies, engine)] = float(np.median([r[1] for r in rr]))
-        print(f"phase3 gate x{copies} ({copies * cells_1} candidate cells) "
+    for (shape, engine), rr in runs.items():
+        med[(shape, engine)] = float(np.median([r[1] for r in rr]))
+        print(f"phase3 gate {_shape(shape)} ({cells[shape]} candidate cells) "
               f"{engine} engine: search s "
               f"{[round(r[1], 3) for r in rr]}, walls s "
               f"{[round(r[0], 3) for r in rr]}; median search "
-              f"{med[(copies, engine)]:.3f} s"
+              f"{med[(shape, engine)]:.3f} s"
               + (f"; torch probe (thread s, the search's wait s) "
                  f"{[r[2] for r in rr]}" if engine == "gpu" else ""))
-    cells = np.array([c * cells_1 for c in pristine], dtype=np.float64)
-    lines = {e: np.polyfit(cells, [med[(c, e)] for c in pristine], 1)
+    query_side = [c for c in pristine if c != "t"]
+    x = np.array([cells[c] for c in query_side], dtype=np.float64)
+    lines = {e: np.polyfit(x, [med[(c, e)] for c in query_side], 1)
              for e in ("gpu", "host")}
     (bg, ag), (bh, ah) = lines["gpu"], lines["host"]
     cross = (ag - ah) / (bh - bg) if bh != bg else float("inf")
-    inside = bool(cells.min() <= cross <= cells.max())
-    wins = [med[(c, "gpu")] < med[(c, "host")] for c in pristine]
-    print(f"phase3 gate fit over {len(cells)} shapes (least squares "
-          f"through the medians): search s = a + b x cells, GPU engine a "
-          f"{ag:.6g} b {bg:.6g}, host engine a {ah:.6g} b {bh:.6g}; the "
-          f"lines cross at {cross:.6g} candidate cells "
+    inside = bool(x.min() <= cross <= x.max())
+    wins = [med[(c, "gpu")] < med[(c, "host")] for c in query_side]
+    print(f"phase3 gate fit over the {len(x)} query-side shapes (least "
+          f"squares through the medians): search s = a + b x cells, GPU "
+          f"engine a {ag:.6g} b {bg:.6g}, host engine a {ah:.6g} b "
+          f"{bh:.6g}; the lines cross at {cross:.6g} candidate cells "
           f"({'inside' if inside else 'outside'} the measured "
-          f"{cells.min():.6g}-{cells.max():.6g}; the GPU engine "
+          f"{x.min():.6g}-{x.max():.6g}; the GPU engine "
           f"{'faster' if bh > bg else 'slower'} per cell); the GPU engine "
           f"won at {sum(wins)} of {len(wins)} shapes; _DEVICE_CELLS_THRESHOLD"
           f" in the code {pm._DEVICE_CELLS_THRESHOLD:.6g}")
+    ct = cells["t"]
+    engages = pm.device_scoring_engages(None, None, ct, lambda: True)
+    print(f"phase3 gate target axis (x{GATE_TARGET_COPIES // COPIES} target "
+          f"genomes, {ct} candidate cells): median search GPU engine "
+          f"{med[('t', 'gpu')]:.3f} s (the line predicts "
+          f"{ag + bg * ct:.3f}), host engine {med[('t', 'host')]:.3f} s "
+          f"(the line predicts {ah + bh * ct:.3f}); the GPU engine "
+          f"{'won' if med[('t', 'gpu')] < med[('t', 'host')] else 'lost'}; "
+          f"auto at this point: the "
+          f"{'GPU' if engages else 'host'} engine")
+    print(f"phase3 (b) in {time.perf_counter() - t_phase:.1f} s")
 
     return {"post_s_per_res": per_res, "walk_s_per_kmer": per_kmer}
 
@@ -1192,7 +1342,14 @@ def phase4_production(dev, p3):
         f"{run}: {ms} ms" for run, (ms, _) in sweep.items()))
     if c_err or e_err:
         raise AssertionError("phase4 production: kernel != plain")
-    del c_plain, e_plain, e_cplain, c_wrapped, compacted, sweep
+    del c_plain, e_plain, e_cplain, c_wrapped, sweep
+    lib_ms, lib_width = _int_mm_ms(compacted[0], inputs)
+    print(f"phase4 production counts' library yardstick: torch._int_mm of "
+          f"the {compacted[0].shape[0]} compacted int8 rows x the one-hot "
+          f"target expansion ({inputs[3].numel()} positions, in blocks of "
+          f"{lib_width}) {lib_ms:.3f} ms (the product alone, int32 out; "
+          f"the counts kernel alone {k_ms} ms)")
+    del compacted
     # the bounds' work: the int8 product over the rows that can match
     # (the kernels skip the rest), over all positions for counts and over
     # the hit tiles for emit
@@ -1232,8 +1389,36 @@ def phase4_production(dev, p3):
           f"{rate:.6g} cells/s ({nk} k-mers x {len(flat)} residues); fixed "
           f"cost of a dense run in a fresh process {fixed:.3f} s")
     return {"counts": (c_err, k_ms, p_ms), "emit": (e_err, e_k_ms, e_p_ms),
+            "library_ms": {"counts": lib_ms, "emit": None},
             "fixed_s": fixed, "cells_per_s": rate,
             "work": {"counts": counts_work, "emit": emit_work}}
+
+
+def _int_mm_ms(qexp_c, inputs, width=16384):
+    """(ms, width): torch._int_mm of the counts kernel's compacted int8
+    rows [Rc, KDIM] against the one-hot expansion of every target
+    position [KDIM, C] (what the kernel builds on the fly), in column
+    blocks of `width` positions so that each int32 output fits, timed by
+    CUDA events over all blocks after one warm-up block. The library
+    yardstick of B2 counts: the port never calls it."""
+    import torch
+    from spacepharer_tpu_torch.ops import prefilter_dense as pd
+    _, _, letters, tval, offsets = inputs
+    c = tval.numel()
+    texp = torch.zeros((c, pd.KDIM), dtype=torch.int8, device=tval.device)
+    rows = torch.arange(c, device=tval.device)
+    for p, off in enumerate(offsets):
+        texp[rows, p * 21 + letters[off:off + c].long()] = 1
+    del rows
+    torch._int_mm(qexp_c, texp[:width].t())
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for c0 in range(0, c, width):
+        torch._int_mm(qexp_c, texp[c0:c0 + width].t())
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), width
 
 
 def fixed_cost_probe():
@@ -1986,20 +2171,20 @@ def _build_all():
     return sass
 
 
-def _kernel_ms(module, fn, args, n):
+def _kernel_ms(module, fn, args, n, events="launch_events"):
     """(mean ms of the kernel launches alone over n calls of fn(*args),
     last output): the wrapper records CUDA events around its launches
-    into module.launch_events; one warm-up call first."""
+    into module.<events>; one warm-up call first."""
     import torch
     fn(*args)
-    module.launch_events = []
+    setattr(module, events, [])
     try:
         for _ in range(n):
             out = fn(*args)
         torch.cuda.synchronize()
-        ms = [a.elapsed_time(b) for a, b in module.launch_events]
+        ms = [a.elapsed_time(b) for a, b in getattr(module, events)]
     finally:
-        module.launch_events = None
+        setattr(module, events, None)
     return sum(ms) / len(ms), out
 
 
@@ -2053,7 +2238,7 @@ def main():
         p1 = phase1(dev, golden)
         phase2(golden, tmp)
         p3 = phase3(golden, tmp, args.seed, clock_hz)
-        walk = phase3_gates(p3)
+        walk = phase3_gates(p3, golden, args.seed)
         case_errs = phase4_cases(dev)
         p4 = phase4_production(dev, p3)
         p4_launches = phase4_predictmatch(p3, tmp)
@@ -2072,6 +2257,7 @@ def main():
     print(f"chip_smoke: phases 0-6 in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     sw_src, sw_replaces = KERNELS["sw_allpairs"]
+    pp_src, pp_replaces = KERNELS["pair_profile"]
     pd_src, pd_replaces = KERNELS["prefilter_dense"]
     sd_src, sd_replaces = KERNELS["sw_dense"]
     bound, bound_by = _sw_bound(p1["bytes"], p1["cells"], clock_hz)
@@ -2087,7 +2273,15 @@ def main():
                "max_abs_err": max(p1["pair_err"], p3["max_abs_err"]),
                "ms": p3["ms"], "plain_ms": p3["plain_ms"],
                "bound_ms": p3["bound"][0], "bound_by": p3["bound"][1],
-               "library_ms": None}]
+               "library_ms": None},
+              {"name": "pair_profile", "route": "cuda", "source": pp_src,
+               "replaces": pp_replaces,
+               "launches": p3["launches"]["pair_profile"],
+               "max_abs_err": p3["profile"]["max_abs_err"],
+               "ms": p3["profile"]["ms"],
+               "plain_ms": p3["profile"]["plain_ms"],
+               "bound_ms": p3["profile"]["bound"][0],
+               "bound_by": p3["profile"]["bound"][1], "library_ms": None}]
     for i, (name, replaces) in enumerate((
             ("prefilter_dense_counts", pd_replaces),
             ("prefilter_dense_emit", EMIT_REPLACES))):
@@ -2099,7 +2293,8 @@ def main():
                        "max_abs_err": max(case_errs[i], err, p6_errs[i]),
                        "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": bound_by, "library_ms": None})
+                       "bound_by": bound_by,
+                       "library_ms": p4["library_ms"][part]})
     for name, replaces, key, case_err, extra_err in (
             ("sw_dense_one_query", ONE_QUERY_REPLACES, "b3", p5_errs[0], 0),
             ("sw_dense_batch", sd_replaces, "b4", p5_errs[1],

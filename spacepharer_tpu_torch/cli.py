@@ -21,7 +21,8 @@ import time
 
 from .io.setdb import SetDB, build_setdb_from_fasta, build_setdb_from_spacers
 from .io.spacer_formats import collect_input_files, parse_spacers
-from .pipeline.predictmatch import PredictParams, predict_match
+from .pipeline.predictmatch import (PredictParams, predict_match,
+                                    requested_device)
 from .ops.align import AlnParams
 from .ops.prefilter import PrefilterParams
 
@@ -220,7 +221,8 @@ def _predict_params(args) -> PredictParams:
         use_tpu=None if args.use_tpu < 0 else bool(args.use_tpu),
         mesh=(tuple(int(x) for x in args.shards.split(","))
               if getattr(args, "shards", None) else None),
-        trace_dir=getattr(args, "trace_dir", None))
+        trace_dir=getattr(args, "trace_dir", None),
+        device=requested_device())
 
 
 def _make_cache(tmp_dir, command, params, inputs, force_restart=False):
@@ -498,7 +500,7 @@ def cmd_multihitsearch(argv):
     args = p.parse_args(argv)
     from .io.entries_tsv import write_entries
     from .ops.evalue import gumbel_params
-    from .pipeline.predictmatch import PredictParams, search_setdbs
+    from .pipeline.predictmatch import search_setdbs
     from .stats.aggregation import best_hit_per_set, merge_results_by_set
     try:
         gumbel_params(args.sub_mat, args.gap_open, args.gap_extend)
@@ -507,7 +509,8 @@ def cmd_multihitsearch(argv):
     qdb = SetDB.load(args.querySetDB)
     tdb = SetDB.load(args.targetSetDB)
     os.makedirs(args.tmpDir, exist_ok=True)
-    pp = PredictParams(threads=args.threads, perform_nucl_aln=False)
+    pp = PredictParams(threads=args.threads, perform_nucl_aln=False,
+                       device=requested_device())
     pp.prefilter.sensitivity = args.sensitivity
     pp.prefilter.start_sens = args.start_sens
     pp.prefilter.sens_steps = args.sens_steps

@@ -1,14 +1,16 @@
 """Entry points of the port: the single-device scoring step
 and a multi-shard dry run (the analogs of the repo's __graft_entry__.py).
 
-Both take the card when one is present and the CPU otherwise.
+Both run on the card and raise without one, unless the caller names the
+CPU (device="cpu", devices=["cpu"]).
 """
 import numpy as np
 
 
-def entry():
+def entry(device=None):
     """The batched Smith-Waterman scoring step over (query, target) pairs
-    (ops/sw_tpu.py) and its inputs, on the card: returns (fn, args)."""
+    (ops/sw_tpu.py) and its inputs, on `device` (default: the first
+    card, raising without one): returns (fn, args)."""
     from .ops.matrices import load_matrix
     from .ops.sw_tpu import build_sub_batch, sw_score_batch
     from .parallel.sharding import default_devices
@@ -17,7 +19,8 @@ def entry():
     m = load_matrix("VTML40.out", 2.0)
     qs = [rng.integers(0, 20, 16) for _ in range(8)]
     ts = [rng.integers(0, 20, 64) for _ in range(8)]
-    args = build_sub_batch(qs, ts, m.scores, device=default_devices()[0])
+    args = build_sub_batch(qs, ts, m.scores,
+                           device=device or default_devices()[0])
 
     def fn(sub, q_len, t_len):
         return sw_score_batch(sub, q_len, t_len, 16, 2)
@@ -144,8 +147,8 @@ def dryrun_multichip(n_devices: int, query_db, target_db,
     merge over t, best-hit-per-target-set and the query-set sum. Runs
     both mesh orientations when n allows ((2,4) and (4,2) at 8) and
     checks each against the exact host forward pass. Shards sit on
-    `devices` (default: the card, else the CPU). Returns the mesh shapes
-    run."""
+    `devices` (default: the cards, raising without one). Returns the mesh
+    shapes run."""
     qs, ts, set_of_t, n_sets = golden_slice(n_devices, query_db, target_db)
     n_q = 2 if n_devices % 2 == 0 and n_devices >= 2 else 1
     shapes = [(n_q, n_devices // n_q)]

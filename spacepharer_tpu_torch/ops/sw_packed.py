@@ -12,6 +12,9 @@ replaces, through two entries of csrc/sw_allpairs.cu:
                 the host prefilter's candidate pairs and nothing around
                 them.
 
+The pair-list entry's query profiles, with each residue's composition
+bias, are built on the card by csrc/pair_profile.cu (pair_profile).
+
 Layout (host packing, shared by the CUDA kernel and its plain version):
 
   prof   int32 [R, 32]  query profile rows, all queries concatenated:
@@ -77,9 +80,14 @@ launch_events = None
 # the same two counts for sw_pairs, the pair-list entry
 pair_launches = 0
 pair_cells = 0
+# kernel launches made by pair_profile (csrc/pair_profile.cu), and None or
+# a list to which each of them appends a (start, stop) pair of CUDA events
+# recorded around it
+profile_launches = 0
+profile_events = None
 # None, or a dict to which device_pair_scores adds the host seconds of its
-# steps ("pack", "upload", "score", "read-back"), each ended by a
-# synchronise
+# steps ("profile": the query profiles with their bias, "upload", "score",
+# "read-back"), each ended by a synchronise
 pair_timing = None
 
 
@@ -325,13 +333,22 @@ def device_allpairs_scores(q_list, t_list, matrix_scores, bias_list=None,
     return allpairs_scores(qpack, tpack, gap_open, gap_extend, device)
 
 
-def pack_pair_queries(q_list, matrix_scores, bias_list=None, device="cpu"):
+def pack_pair_queries(q_list, matrix_scores, bias_list=None, device="cpu",
+                      expected=None):
     """The pair-list entry's query profiles (module docstring), built on
-    `device` from the queries' letters and biases (one upload of each):
+    `device` from the queries' letters (one upload):
     dict(prof int8 [S, 32, 16], q_stripe int64 [n_q], q_len int32 [n_q]).
-    bias_list, when given, holds one bias per query residue. Raises
-    ValueError where a score plus its bias leaves [-127, 127] (every
-    shipped matrix with its int8 bias lies well inside)."""
+    bias_list, when given, holds one bias per query residue, added to
+    each profile row here. Without it the profile comes from pair_profile
+    (csrc/pair_profile.cu on a card): with `expected`, the matrix's
+    float64 expected-score table (ops/bias.py::expected_score_tab), it
+    computes each residue's composition bias in the same pass (sw_bias_i8
+    bit for bit), else none. Raises ValueError where a score plus its bias
+    leaves [-127, 127] (every shipped matrix with its int8 bias lies well
+    inside)."""
+    if bias_list is not None and expected is not None:
+        raise ValueError("pack_pair_queries: either biases or the "
+                         "expected-score table, not both")
     dev = torch.device(device)
     lens = np.fromiter((len(q) for q in q_list), dtype=np.int64,
                        count=len(q_list))
@@ -339,20 +356,38 @@ def pack_pair_queries(q_list, matrix_scores, bias_list=None, device="cpu"):
     q_stripe = np.zeros(len(q_list), dtype=np.int64)
     np.cumsum(n_str[:-1], out=q_stripe[1:])
     total = int(lens.sum())
-    prof = torch.full((int(n_str.sum()) * A_PAD * STRIPE,), PROF8_NEG,
-                      dtype=torch.int8, device=dev)
     q_stripe_d = torch.from_numpy(q_stripe).to(dev)
     lens_d = torch.from_numpy(lens).to(dev)
+    out = {"q_stripe": q_stripe_d, "q_len": lens_d.to(torch.int32)}
+    qcat = (np.concatenate(q_list) if total else np.zeros(0, np.int64))
+    if total and int(qcat.max()) >= matrix_scores.shape[1]:
+        raise ValueError("pack_pair_queries: query letters must lie in the "
+                         "matrix's alphabet")
+    if bias_list is None:
+        q_off = np.zeros(len(q_list) + 1, dtype=np.int64)
+        np.cumsum(lens, out=q_off[1:])
+        tab = (np.zeros(matrix_scores.shape[1]) if expected is None
+               else expected)
+        out["prof"] = pair_profile(
+            torch.from_numpy(qcat.astype(np.uint8)).to(dev),
+            torch.from_numpy(q_off).to(dev), q_stripe_d, int(n_str.sum()),
+            torch.from_numpy(np.ascontiguousarray(
+                matrix_scores, dtype=np.int32)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(
+                tab, dtype=np.float64)).to(dev),
+            comp_bias=expected is not None)
+        return out
+    prof = torch.full((int(n_str.sum()) * A_PAD * STRIPE,), PROF8_NEG,
+                      dtype=torch.int8, device=dev)
     if total:
-        qcat = torch.from_numpy(np.concatenate(q_list)).to(dev).long()
+        qcat = torch.from_numpy(qcat).to(dev).long()
         rows = torch.from_numpy(np.ascontiguousarray(
             matrix_scores, dtype=np.int32)).to(dev)[qcat]
-        if bias_list is not None:
-            bcat = np.concatenate(bias_list)
-            if len(bcat) != total:
-                raise ValueError("pack_pair_queries: one bias per query "
-                                 "residue")
-            rows += torch.from_numpy(bcat.astype(np.int32)).to(dev)[:, None]
+        bcat = np.concatenate(bias_list)
+        if len(bcat) != total:
+            raise ValueError("pack_pair_queries: one bias per query "
+                             "residue")
+        rows += torch.from_numpy(bcat.astype(np.int32)).to(dev)[:, None]
         lo, hi = (int(v) for v in torch.aminmax(rows))
         if lo < -127 or hi > 127:
             raise ValueError("pack_pair_queries: profile scores must lie in "
@@ -366,8 +401,123 @@ def pack_pair_queries(q_list, matrix_scores, bias_list=None, device="cpu"):
         col = torch.arange(rows.shape[1], device=dev) * STRIPE
         prof[(base[:, None] + col).reshape(-1)] = rows.reshape(-1).to(
             torch.int8)
-    return {"prof": prof.reshape(-1, A_PAD, STRIPE), "q_stripe": q_stripe_d,
-            "q_len": lens_d.to(torch.int32)}
+    out["prof"] = prof.reshape(-1, A_PAD, STRIPE)
+    return out
+
+
+def pair_profile_plain(letters, q_off, q_stripe, n_stripes, scores,
+                       expected, comp_bias: bool = True):
+    """Plain PyTorch version of csrc/pair_profile.cu, on the inputs'
+    device: (the int8 stripe profile [n_stripes, 32, 16] of the queries
+    whose letters lie concatenated in `letters`, query q being
+    letters[q_off[q]:q_off[q + 1]] from stripe q_stripe[q] on, each row
+    scores[q_i] + bias_i; whether every value lay in [-127, 127]).
+
+    bias_i is sw_bias_i8's composition bias when comp_bias (else 0), in
+    the kernel's arithmetic: the window sum over offsets -20..19 in
+    integers, then -sum / window length + expected[q_i] in float64, each
+    operation rounded on its own, rounded half away from zero."""
+    dev = letters.device
+    total = letters.numel()
+    prof = torch.full((n_stripes * A_PAD * STRIPE,), PROF8_NEG,
+                      dtype=torch.int8, device=dev)
+    if total == 0:
+        return prof.reshape(-1, A_PAD, STRIPE), True
+    lens = q_off[1:] - q_off[:-1]
+    qid = torch.repeat_interleave(torch.arange(lens.numel(), device=dev),
+                                  lens, output_size=total)
+    start, n = q_off[:-1][qid], lens[qid]
+    i = torch.arange(total, device=dev) - start
+    a = letters.long()
+    rows = scores.long()[a]                                # [total, alpha]
+    bias = torch.zeros(total, dtype=torch.int64, device=dev)
+    if comp_bias:
+        win_sum = torch.zeros(total, dtype=torch.int64, device=dev)
+        for d in range(-20, 20):
+            j = i + d
+            ok = (j >= 0) & (j < n) & (d != 0)
+            nb = letters[torch.where(ok, start + j, 0)].long()
+            win_sum += torch.where(ok, rows.gather(1, nb[:, None])[:, 0], 0)
+        win_len = torch.minimum(n, i + 20) - torch.clamp_min(i - 20, 0)
+        x = (-win_sum.double()) / win_len.double() + expected[a]
+        bias = torch.where(x < 0, torch.ceil(x - 0.5),
+                           torch.floor(x + 0.5)).long()
+    vals = rows + bias[:, None]
+    in_range = bool(((vals >= -127) & (vals <= 127)).all())
+    base = (q_stripe[qid] + i // STRIPE) * (A_PAD * STRIPE) + i % STRIPE
+    col = torch.arange(vals.shape[1], device=dev) * STRIPE
+    prof[(base[:, None] + col).reshape(-1)] = vals.reshape(-1).to(torch.int8)
+    return prof.reshape(-1, A_PAD, STRIPE), in_range
+
+
+def pair_profile(letters, q_off, q_stripe, n_stripes, scores, expected,
+                 comp_bias: bool = True) -> torch.Tensor:
+    """The int8 stripe profile of pair_profile_plain, composition bias
+    folded in when comp_bias (inputs: letters uint8 [total], q_off int64
+    [n_q + 1], q_stripe int64 [n_q], scores int32 [alpha, alpha], expected
+    float64 [alpha]).
+
+    On CUDA tensors this launches csrc/pair_profile.cu once over every
+    residue and raises if the kernel cannot be built or launched; on CPU
+    tensors it runs pair_profile_plain. Raises ValueError where a profile
+    value leaves [-127, 127]."""
+    global profile_launches
+    dev = letters.device
+    if dev.type == "cpu":
+        prof, in_range = pair_profile_plain(letters, q_off, q_stripe,
+                                            n_stripes, scores, expected,
+                                            comp_bias)
+    elif dev.type != "cuda":
+        raise ValueError(f"pair_profile: unsupported device {dev}")
+    else:
+        for name, x, dtype in (("letters", letters, torch.uint8),
+                               ("q_off", q_off, torch.int64),
+                               ("q_stripe", q_stripe, torch.int64),
+                               ("scores", scores, torch.int32),
+                               ("expected", expected, torch.float64)):
+            _check(name, x, dtype, dev, "pair_profile")
+        from ._cuda import library
+        lib = library("pair_profile")
+        alpha = scores.shape[-1]
+        if (scores.dim() != 2 or scores.shape[0] != alpha
+                or expected.numel() != alpha
+                or alpha > lib.pair_profile_max_alpha()):
+            raise ValueError("pair_profile: scores must be [alpha, alpha] "
+                             "and expected [alpha], alpha <= 32")
+        prof = torch.full((n_stripes, A_PAD, STRIPE), PROF8_NEG,
+                          dtype=torch.int8, device=dev)
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        total = letters.numel()
+        if total:
+            cur = torch.cuda.current_stream(dev)
+            events = None
+            if profile_events is not None:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record(cur)
+            err = lib.pair_profile_launch(
+                ctypes.c_void_p(letters.data_ptr()),
+                ctypes.c_void_p(q_off.data_ptr()),
+                ctypes.c_void_p(q_stripe.data_ptr()),
+                ctypes.c_int(q_off.numel() - 1), ctypes.c_longlong(total),
+                ctypes.c_void_p(scores.data_ptr()),
+                ctypes.c_void_p(expected.data_ptr()), ctypes.c_int(alpha),
+                ctypes.c_int(int(bool(comp_bias))),
+                ctypes.c_void_p(prof.data_ptr()),
+                ctypes.c_void_p(flag.data_ptr()),
+                ctypes.c_void_p(cur.cuda_stream))
+            if err != 0:
+                raise RuntimeError(f"pair_profile kernel launch failed: "
+                                   f"CUDA error {err}")
+            profile_launches += 1
+            if events is not None:
+                events[1].record(cur)
+                profile_events.append(events)
+        in_range = int(flag) == 0
+    if not in_range:
+        raise ValueError("pair_profile: profile scores must lie in "
+                         "[-127, 127] (int8)")
+    return prof
 
 
 def sw_pairs_plain(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
@@ -541,13 +691,17 @@ def _lap(timing, key, since, dev):
 
 def device_pair_scores(q_list, biases, t_flat, t_off, cand_t, cand_off,
                        matrix_scores, gap_open: int = 16,
-                       gap_extend: int = 2, device="cuda") -> np.ndarray:
+                       gap_extend: int = 2, device="cuda",
+                       expected=None) -> np.ndarray:
     """int64 exact SW score of every candidate pair, in pair order: query
     i against target cand_t[p] for p in cand_off[i]:cand_off[i + 1],
     target t being t_flat[t_off[t]:t_off[t + 1]]. The GPU scoring
-    engine's entry: the whole target DB and every query profile go to
-    `device` once, the pairs in runs of at most PAIR_CHUNK, each scored
-    by sw_pairs."""
+    engine's entry: the whole target DB and every query's letters go to
+    `device` once, the profiles are built there (pack_pair_queries), the
+    pairs go in runs of at most PAIR_CHUNK, each scored by sw_pairs.
+    biases: one int bias per residue of each query, or None; expected:
+    None, or the matrix's expected-score table, with which the profile
+    build computes the composition bias itself (biases then None)."""
     dev = torch.device(device)
     timing = pair_timing
     n = len(cand_t)
@@ -559,9 +713,9 @@ def device_pair_scores(q_list, biases, t_flat, t_off, cand_t, cand_off,
         raise ValueError("device_pair_scores: target letters must lie in "
                          "the matrix's alphabet")
     lap = time.perf_counter()
-    qp = pack_pair_queries(q_list, matrix_scores, biases, dev)
+    qp = pack_pair_queries(q_list, matrix_scores, biases, dev, expected)
     prof, q_stripe, q_len = qp["prof"], qp["q_stripe"], qp["q_len"]
-    lap = _lap(timing, "pack", lap, dev)
+    lap = _lap(timing, "profile", lap, dev)
     t_seqs = torch.from_numpy(np.concatenate(
         [t_flat, np.zeros(T_PAD, dtype=np.uint8)])).to(dev)
     t_off_d = torch.from_numpy(np.ascontiguousarray(t_off,

@@ -12,10 +12,11 @@ gathered shard top-k lists.
 A Mesh is a (q, t) grid of torch devices in this process, and its shards
 run one after the other. Shard (i, j) sits on devices[(i * n_t + j) %
 len(devices)]: on one H100 all 8 shards of `--shards 2,4` sit on cuda:0;
-on the CPU they sit on cpu, the analog of the 8 virtual devices that
-tests/conftest.py gives JAX. The multi-process form, with one shard per
-rank and torch.distributed collectives, is parallel/distributed.py; both
-run the per-shard core below (shard_step, merge_topk, sum_per_qset).
+asked for the CPU (devices=["cpu"]), they sit on cpu, the analog of the 8
+virtual devices that tests/conftest.py gives JAX. The multi-process form,
+with one shard per rank and torch.distributed collectives, is
+parallel/distributed.py; both run the per-shard core below (shard_step,
+merge_topk, sum_per_qset).
 Every result comes back as numpy, so callers that fork never touch CUDA.
 """
 from dataclasses import dataclass
@@ -40,15 +41,21 @@ class Mesh:
 
 
 def default_devices():
-    """Every CUDA device of this process, or the CPU without one."""
+    """Every CUDA device of this process; raises without one (a mesh runs
+    on the CPU only when its caller names the CPU's devices)."""
     if torch.cuda.is_available():
         return [torch.device("cuda", k)
                 for k in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    raise RuntimeError(
+        "the device mesh (--shards) needs a CUDA device and none is "
+        "attached; pass devices=['cpu'] (the CLI: SPACEPHARER_TORCH_DEVICE"
+        "=cpu) to run it on the CPU")
 
 
 def make_mesh(n_query_shards: int = 1, n_target_shards: int = None,
               devices=None) -> Mesh:
+    """A (q, t) mesh over `devices` (default: every CUDA device, raising
+    without one), shards placed round-robin."""
     devices = [torch.device(d) for d in (devices if devices is not None
                                          else default_devices())]
     if n_target_shards is None:

@@ -44,14 +44,18 @@ class PredictParams:
     threads: int = 0  # 0 = all cores; 1 = sequential
     # None = auto: the accelerator (a CUDA GPU) is the default scoring
     # engine when one is attached and the workload amortizes transfer +
-    # kernel build; True forces the device engine (the torch scan on the
-    # CPU when no GPU is attached)
+    # kernel build; True forces the device engine
     use_tpu: Optional[bool] = None
     # (q_shards, t_shards) device mesh for the scoring step; None =
     # single device. Shards sit on the CUDA devices, several on one card
-    # when there are fewer cards than shards, or on the CPU without one
-    # (parallel/sharding.py).
+    # when there are fewer cards than shards (parallel/sharding.py).
     mesh: Optional[tuple] = None
+    # where the device routes (--use-tpu 1, --shards, --prefilter-engine
+    # device) run: "cuda", where they raise without a card, or "cpu", the
+    # caller's explicit ask for the kernels' plain versions and the torch
+    # scan on the CPU (the CLI reads it from DEVICE_ENV). Output bytes do
+    # not depend on it, so it stays out of the workflow cache's key.
+    device: str = field(default="cuda", repr=False)
     # torch.profiler trace output dir (SURVEY 5.1: the device-side
     # observability analog of the reference's prefilter statistics);
     # None = off. The chrome trace opens in chrome://tracing / Perfetto.
@@ -59,6 +63,30 @@ class PredictParams:
 
 
 _worker_fn = None
+
+# The environment variable through which a CLI user asks for the device
+# routes on the CPU (PredictParams.device): "cpu" or "cuda" (the default).
+DEVICE_ENV = "SPACEPHARER_TORCH_DEVICE"
+
+
+def requested_device() -> str:
+    """PredictParams.device as DEVICE_ENV asks for it."""
+    device = os.environ.get(DEVICE_ENV, "cuda")
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"{DEVICE_ENV} must be 'cuda' or 'cpu', got "
+                         f"{device!r}")
+    return device
+
+
+def _require_card(params, route: str):
+    """Raise unless a CUDA card is attached or the caller asked for the
+    CPU (params.device): a device route never runs on the CPU unasked."""
+    if params.device == "cpu" or _accelerator_present():
+        return
+    raise RuntimeError(
+        f"{route} needs a CUDA device and none is attached; set "
+        f"{DEVICE_ENV}=cpu (PredictParams(device='cpu')) to run it on the "
+        "CPU")
 
 
 # Dense-prefilter cost model, measured by chip_smoke.py phase 4 on an
@@ -415,9 +443,11 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
     if two_phase or use_batch:
         if use_dev_pf:
             from ..ops.prefilter_dense import device_prefilter
-            # the kernels on a card, their plain versions on the CPU; the
-            # hits come back as host data
-            device = "cuda" if _accelerator_present() else "cpu"
+            # the kernels on a card, their plain versions on the CPU when
+            # asked for; the hits come back as host data
+            _require_card(params, "the dense prefilter "
+                                  "(--prefilter-engine device)")
+            device = params.device
             log(2, f"dense device prefilter ({device}): "
                    f"{nk_total} k-mers x {t_res} target residues")
             hits_all = device_prefilter(
@@ -442,7 +472,7 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
             qlen_pair = np.repeat(q_lens[np.asarray(chunk)], np.diff(co))
             cells += int(np.dot(qlen_pair, t_lens[ct]))
         engage = _device_engage(cells)
-        log(2, f"candidate cells {cells:.3g} -> "
+        log(2, f"candidate cells {cells} -> "
                f"{'device' if engage else 'host'} scoring engine")
         if engage:
             prot = _search_tpu(keys, t_aa, (t_flat, t_off),
@@ -475,20 +505,24 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
 # Exact candidate DP cells above which `auto` sends a search on a card to
 # the GPU scoring engine. chip_smoke.py phase 3(b) on an NVIDIA H100 80GB
 # HBM3 (700 W power limit) timed the search stage of both engines under
-# `auto` (host prefilter, the control search forked onto the host), three
-# alternating fresh processes each, medians, the GPU engine scoring the
-# candidate pairs alone (B1's pair-list entry) with torch imported on a
-# thread beside the host walk: at the phase-3 corpus (82,039,218
-# candidate cells) GPU engine 8.383 s, host engine 3.770 s; its query
-# side three times over (246,117,654) 10.757 s and 4.888 s; ten times
-# over (820,392,180) 19.093 s and 13.036 s. Lines fitted through the
-# three: GPU engine 7.18996 s + 1.4508e-8 s per cell, host engine
-# 2.26287 s + 1.29776e-8 s per cell. The GPU engine pays more per cell
-# (its bias and survivor alignment stay on the host) and more fixed
-# cost (the part of import torch the walk does not hide, 0-2.6 s), so
-# the lines never cross (they would at -3.2e9 cells). The threshold
-# therefore lies above every measured shape: `auto` keeps the host
-# engine, and --use-tpu 1 still forces the GPU engine.
+# `auto` (host prefilter, the control search forked onto the host),
+# alternating fresh processes, medians, the GPU engine scoring the
+# candidate pairs alone (B1's pair-list entry) with each query's
+# composition bias built beside its profile on the card
+# (csrc/pair_profile.cu) and torch imported on a thread beside the host
+# walk: at the phase-3 corpus (82,039,218 candidate cells) GPU engine
+# 11.100 s, host engine 5.134 s; its query side ten times over
+# (820,392,180) 20.976 s and 14.516 s; thirty times over (2,461,176,540)
+# 48.733 s and 43.693 s. Lines fitted through the three: GPU engine
+# 8.9961 s + 1.6001e-8 s per cell, host engine 2.64903 s + 1.6469e-8 s
+# per cell. Per cell the GPU engine is now the cheaper by 3 %, but its
+# fixed cost is 6.3 s higher (the part of import torch the walk does not
+# hide, 3.0-3.7 s at phase 3's shape, and the import's contention with
+# the walk), so the lines cross only at 1.36e10 cells, outside the
+# measured shapes; at 3x the target genomes (240,134,098 cells) the GPU
+# engine also lost, 13.488 s against 8.367 s. The threshold therefore
+# stays above every measured shape: `auto` keeps the host engine, and
+# --use-tpu 1 still forces the GPU engine.
 _DEVICE_CELLS_THRESHOLD = 1e12
 
 # Queries per native batch-driver dispatch: bounds the transient hit
@@ -784,33 +818,48 @@ def _key_blocks(cand_t, cand_off, max_cells) -> list:
     return blocks
 
 
+def _pairs_on_card(params) -> bool:
+    """Whether _candidate_scores takes B1's pair-list entry on the card
+    (no mesh, and the caller did not ask for the CPU)."""
+    return params.mesh is None and params.device != "cpu"
+
+
 def _candidate_scores(q_list, t_aa, cand_t, cand_off, biases, m40,
                       params, t_packed=None) -> np.ndarray:
     """Exact SW score of every (query, candidate) pair, int64 in pair
     order: B1's pair-list entry on a card (the pairs alone; t_packed =
     (t_flat, t_off), the search's packed targets, is built from t_aa when
-    not given), B4 per shard on the mesh, the torch scan on the CPU. The
-    mesh and the scan take keys in blocks whose dense [block, union]
-    matrix stays within _MAX_MATRIX_CELLS: at catalog scale (30k+ query
-    sets, README.md:107-110) a single all-keys union matrix is the memory
-    wall, and a block's union spans only the targets its queries hit."""
+    not given; each query's composition bias is computed with its
+    profile on the card, so `biases` is not read), B4 per shard on the
+    mesh, the torch scan on the CPU when the caller asked for it
+    (params.device). The mesh and the scan take keys in blocks whose
+    dense [block, union] matrix stays within _MAX_MATRIX_CELLS: at
+    catalog scale (30k+ query sets, README.md:107-110) a single all-keys
+    union matrix is the memory wall, and a block's union spans only the
+    targets its queries hit."""
     go, ge = params.align.gap_open, params.align.gap_extend
-    if params.mesh is None and _accelerator_present():
+    if _pairs_on_card(params):
+        from ..ops.bias import expected_score_tab
         from ..ops.sw_packed import device_pair_scores
+        _require_card(params, "the GPU scoring engine (--use-tpu 1)")
         if t_packed is None:
             t_off = np.zeros(len(t_aa) + 1, dtype=np.int64)
             np.cumsum([len(t) for t in t_aa], out=t_off[1:])
             t_packed = (np.concatenate(t_aa) if len(t_aa)
                         else np.zeros(0, np.uint8), t_off)
-        return device_pair_scores(q_list, biases, t_packed[0], t_packed[1],
-                                  cand_t, cand_off, m40.scores, go, ge,
-                                  device="cuda")
+        return device_pair_scores(
+            q_list, None, t_packed[0], t_packed[1], cand_t, cand_off,
+            m40.scores, go, ge, device="cuda",
+            expected=(expected_score_tab(m40)
+                      if params.align.comp_bias_corr else None))
     out = np.zeros(len(cand_t), dtype=np.int64)
     mesh = None
     if params.mesh is not None:
         from ..parallel.sharding import make_mesh
-        # on the CUDA devices when a GPU is present, else on the CPU
-        mesh = make_mesh(*params.mesh)
+        # on the CUDA devices (make_mesh raises without one), or on the
+        # CPU when the caller asked for it
+        mesh = make_mesh(*params.mesh, devices=(
+            ["cpu"] if params.device == "cpu" else None))
     for k0, k1 in _key_blocks(cand_t, cand_off, _MAX_MATRIX_CELLS):
         p0, p1 = int(cand_off[k0]), int(cand_off[k1])
         if p0 == p1:
@@ -827,7 +876,7 @@ def _candidate_scores(q_list, t_aa, cand_t, cand_off, biases, m40,
                 bias_list=b_blk, gap_open=go, gap_extend=ge)
             out[p0:p1] = scores[rows, cols]
         else:
-            # no GPU: the bucketed torch scan on the CPU, pair by pair
+            # asked for the CPU: the bucketed torch scan, pair by pair
             from ..ops.sw_tpu import score_pairs_bucketed
             out[p0:p1] = score_pairs_bucketed(
                 list(zip(rows.tolist(), cand_t[p0:p1].tolist())), q_blk,
@@ -877,26 +926,31 @@ def _search_tpu(keys, t_aa, t_packed, cand_arrays, q_all, m40, evaluer,
     the host path (the device scores are cell-exact,
     tests/test_sw_packed.py).
 
-    With the product's acceptance parameters the biases, the E-value
-    screen and the survivors' alignment run over whole key blocks
-    (_query_bias_i8, _evalue_screen, _align_survivors); otherwise each
-    key is realigned on its own, as the JAX package does, fork-pooled
-    like the host path (the reference realigns accepted pairs
-    omp-parallel, Alignment.cpp:255-)."""
+    With the product's acceptance parameters the E-value screen and the
+    survivors' alignment run over whole key blocks (_evalue_screen,
+    _align_survivors), and on the card the composition biases are
+    computed with the query profiles (csrc/pair_profile.cu); otherwise
+    each key is realigned on its own, as the JAX package does,
+    fork-pooled like the host path (the reference realigns accepted
+    pairs omp-parallel, Alignment.cpp:255-), from host biases
+    (_query_bias_i8), which the mesh and the CPU scan also read."""
     from ..ops.align import sw_align, check_criteria
 
     cand_t, cand_off = cand_arrays
     q_list = [q_all[k] for k in keys]
-    if params.align.comp_bias_corr:
+    a = params.align
+    batched = (a.max_accept == INT_MAX and a.max_rejected == INT_MAX
+               and a.cov_thr == 0 and a.seq_id_thr == 0
+               and a.aln_len_thr == 0)
+    if batched and _pairs_on_card(params):
+        biases = None
+    elif params.align.comp_bias_corr:
         biases = _query_bias_i8(q_list, m40)
     else:
         biases = [np.zeros(len(q), dtype=np.int64) for q in q_list]
     scores = _candidate_scores(q_list, t_aa, cand_t, cand_off, biases, m40,
                                params, t_packed=t_packed)
-    a = params.align
-    if (a.max_accept == INT_MAX and a.max_rejected == INT_MAX
-            and a.cov_thr == 0 and a.seq_id_thr == 0
-            and a.aln_len_thr == 0):
+    if batched:
         q_lens = np.fromiter((len(q) for q in q_list), dtype=np.int64,
                              count=len(q_list))
         keep = _evalue_screen(scores, q_lens, cand_off, evaluer, a.evalue)

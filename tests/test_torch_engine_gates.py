@@ -96,13 +96,19 @@ def test_use_tpu_0_keeps_auto_off_the_card(monkeypatch, golden_dbs):
 
 
 @pytest.mark.parametrize("cells,engages", [
-    # the golden bundle, and chip_smoke.py phase 3(b)'s three shapes,
-    # where the host engine's search stage was the faster and the fitted
-    # lines do not cross
+    # the golden bundle, and every shape chip_smoke.py phase 3(b) has
+    # measured (the query side x1, x3, x10 and x30, and phase 3's query
+    # side against 3x the target genomes), where the host engine's search
+    # stage was the faster and the fitted lines cross only far beyond
+    # them (1.36e10 cells)
     pytest.param(26_100, False, id="golden"),
     pytest.param(82_039_218, False, id="phase3_corpus"),
     pytest.param(246_117_654, False, id="phase3_corpus_x3"),
     pytest.param(820_392_180, False, id="phase3_corpus_x10"),
+    pytest.param(2_461_176_540, False, id="phase3_corpus_x30"),
+    pytest.param(240_134_098, False, id="phase3_targets_x3"),
+    # where the fitted lines cross
+    pytest.param(1.36e10, False, id="fitted_crossing"),
     # just above the TPU's break-even (3e10), where `auto` used to send
     # a search on a card to the GPU engine
     pytest.param(3e10 + 1, False, id="tpu_break_even"),
@@ -190,7 +196,8 @@ def test_torch_probe_starts_only_when_the_card_could_score(
         monkeypatch.setattr(pm, "_DEVICE_CELLS_THRESHOLD", threshold)
     qdb, tdb = golden_dbs
     pm.search_setdbs(qdb, tdb, pm.PredictParams(use_tpu=use_tpu,
-                                                perform_nucl_aln=False))
+                                                perform_nucl_aln=False,
+                                                device="cpu"))
     assert starts == ([1] if started else [])
 
 

@@ -6,7 +6,9 @@ against the JAX package's per-key code on the same inputs.
   align_query_batch. Held on the golden DBs and on a small mutated corpus
   (chip_smoke.build_corpus at a CPU size: 2 % substituted copies of each
   golden genome and random spacer sets), with the torch scan engine and
-  the mesh at (2, 2); with max_accept=1 the per-key path.
+  the mesh at (2, 2), both asked for on the CPU, and the GPU engine's
+  card branch on CPU tensors (its bias built with the query profiles, no
+  host bias); with max_accept=1 the per-key path.
 - The dense route's alignment through align_query_batch.
 - `hits_to_streams` over every key and row at once.
 - `_query_bias_i8` against `sw_bias_i8`, its rounding at +-0.5
@@ -80,7 +82,8 @@ def _search_inputs(corpora, name):
             mp.setattr(pm, "_search_tpu", capture)
             pm.search_setdbs(SetDB.load(qpath), SetDB.load(tpath),
                              pm.PredictParams(use_tpu=True,
-                                              perform_nucl_aln=False))
+                                              perform_nucl_aln=False,
+                                              device="cpu"))
         (_captured[name],) = got
     return _captured[name]
 
@@ -113,15 +116,45 @@ def _no_per_pair_alignment(mp):
     mp.setattr(align, "sw_align", boom)
 
 
+def _card_on_cpu(mp):
+    """Report a card and run the GPU engine's pair entry on CPU tensors
+    (the plain versions of its kernels); the host bias raises."""
+    from spacepharer_tpu_torch.ops import sw_packed
+    real = sw_packed.device_pair_scores
+
+    def host_bias(*a, **kw):
+        raise AssertionError("the card branch built the bias on the host")
+
+    mp.setattr(pm, "_accelerator_present", lambda: True)
+    mp.setattr(pm, "_query_bias_i8", host_bias)
+    mp.setattr(sw_packed, "device_pair_scores",
+               lambda *a, device, **kw: real(*a, device="cpu", **kw))
+
+
+# route -> (mesh, the scoring engine on the card's branch)
+ROUTES = {"scan": (None, False), "mesh22": ((2, 2), False),
+          "card": (None, True)}
+
+
+def _on_route(args, route, mp):
+    """args with the route's mesh and device; the card branch patched in
+    on CPU tensors."""
+    mesh, card = ROUTES[route]
+    if card:
+        _card_on_cpu(mp)
+    return args[:-1] + (replace(args[-1], mesh=mesh,
+                                device="cuda" if card else "cpu"),)
+
+
 @pytest.mark.parametrize("name", ["golden", "mutated"])
-@pytest.mark.parametrize("mesh", [None, (2, 2)], ids=["scan", "mesh22"])
+@pytest.mark.parametrize("mesh", list(ROUTES))
 def test_search_tpu_matches_jax(corpora, name, mesh):
-    args = _search_inputs(corpora, name)
-    args = args[:-1] + (replace(args[-1], mesh=mesh),)
     with pytest.MonkeyPatch.context() as mp:
+        args = _on_route(_search_inputs(corpora, name), mesh, mp)
         _no_per_pair_alignment(mp)
         got = _port_side(args)
-    want = _jax_side(args, jax_pm.PredictParams(use_tpu=True, mesh=mesh))
+    want = _jax_side(args, jax_pm.PredictParams(use_tpu=True,
+                                                mesh=ROUTES[mesh][0]))
     assert got == want
     n_rows = sum(len(r) for r in got.values())
     assert n_rows >= (6 if name == "golden" else 40)
@@ -177,21 +210,25 @@ def test_screen_equals_the_scalar_screen():
         np.testing.assert_array_equal(keep, scalar <= cut)
 
 
-@pytest.mark.parametrize("mesh", [None, (2, 2)], ids=["scan", "mesh22"])
-def test_device_scores_equal_native_forward(corpora, mesh):
+@pytest.mark.parametrize("mesh", list(ROUTES))
+def test_device_scores_equal_native_forward(corpora, mesh, monkeypatch):
     """Every candidate's score from the device engine (int8 bias from
-    _query_bias_i8) equals the native forward pass of align_query_batch
-    (its bias from the expected-score table), so the survivors the
-    screen hands on keep their score and E-value."""
+    _query_bias_i8 on the mesh and the scan, from the profile build on
+    the card's branch) equals the native forward pass of
+    align_query_batch (its bias from the expected-score table), so the
+    survivors the screen hands on keep their score and E-value."""
     lib = get_lib()
     if lib is None:
         pytest.skip("native library unavailable")
-    keys, t_aa, (t_flat, t_off), (cand_t, cand_off), q_all, m40, _, params \
+    keys, t_aa, (t_flat, t_off), (cand_t, cand_off), q_all, m40, _, _ \
         = _search_inputs(corpora, "mutated")
     q_list = [q_all[k] for k in keys]
+    biases = pm._query_bias_i8(q_list, m40)
+    *_, params = _on_route(_search_inputs(corpora, "mutated"), mesh,
+                           monkeypatch)
     dev = pm._candidate_scores(q_list, t_aa, cand_t, cand_off,
-                               pm._query_bias_i8(q_list, m40), m40,
-                               replace(params, mesh=mesh))
+                               None if ROUTES[mesh][1] else biases, m40,
+                               params)
     qstarts = np.zeros(len(q_list) + 1, dtype=np.int64)
     np.cumsum([len(q) for q in q_list], out=qstarts[1:])
     qflat = np.ascontiguousarray(np.concatenate(q_list), dtype=np.uint8)
@@ -225,7 +262,8 @@ def test_dense_route_aligns_in_batches_as_jax(corpora, name, monkeypatch):
 
     qpath, tpath = corpora[name]
     params = pm.PredictParams(use_tpu=False, perform_nucl_aln=False,
-                              prefilter=PrefilterParams(engine="device"))
+                              prefilter=PrefilterParams(engine="device"),
+                              device="cpu")
     monkeypatch.setattr(pm, "align_query", boom)
     got = pm.search_setdbs(SetDB.load(qpath), SetDB.load(tpath), params)
     jparams = jax_pm.PredictParams(use_tpu=False, perform_nucl_aln=False)

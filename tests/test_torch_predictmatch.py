@@ -35,13 +35,14 @@ def golden_dbs(golden):
 
 @pytest.mark.parametrize("engine", ["host", "use_tpu", "key_blocked"])
 def test_golden_result_byte_identical(golden_dbs, engine, monkeypatch):
-    """Host engine; the device engine forced on (on the CPU: the torch
-    scan); and forced on with a 500-cell score-matrix budget, which
-    splits the queries into many key blocks."""
+    """Host engine; the device engine forced on (asked for on the CPU:
+    the torch scan); and forced on with a 500-cell score-matrix budget,
+    which splits the queries into many key blocks."""
     (qdb, tdb, cdb), text = golden_dbs
     if engine == "key_blocked":
         monkeypatch.setattr(pm, "_MAX_MATRIX_CELLS", 500)
-    params = pm.PredictParams(use_tpu=None if engine == "host" else True)
+    params = pm.PredictParams(use_tpu=None if engine == "host" else True,
+                              device="cpu")
     res = pm.predict_match(qdb, tdb, cdb, params)
     assert res.text == text
 
@@ -59,17 +60,20 @@ def test_golden_matches_jax_package(golden_dbs, golden):
 def test_golden_regression_invariant_six_hits(golden_dbs):
     """util/run_regression.sh check 1: exactly 6 hits with p_bh < 1e-3."""
     (qdb, tdb, cdb), _ = golden_dbs
-    res = pm.predict_match(qdb, tdb, cdb, pm.PredictParams(use_tpu=True))
+    res = pm.predict_match(qdb, tdb, cdb, pm.PredictParams(use_tpu=True,
+                                                           device="cpu"))
     hits = [line for line in res.text.split("\n")
             if line.startswith(">") and float(line.split("\t")[2]) < 1e-3]
     assert len(hits) == 6
 
 
 def test_golden_cli_predictmatch_use_tpu_traced(golden_dbs, golden,
-                                                 tmp_path):
-    """The CLI entry with --use-tpu 1 and --trace-dir: golden bytes and
-    a torch.profiler trace of the search stage."""
+                                                 tmp_path, monkeypatch):
+    """The CLI entry with --use-tpu 1 (asked for on the CPU) and
+    --trace-dir: golden bytes and a torch.profiler trace of the search
+    stage."""
     from spacepharer_tpu_torch import cli
+    monkeypatch.setenv(pm.DEVICE_ENV, "cpu")
     _, text = golden_dbs
     out = tmp_path / "result.tsv"
     trace_dir = tmp_path / "trace"
@@ -83,8 +87,8 @@ def test_golden_cli_predictmatch_use_tpu_traced(golden_dbs, golden,
 
 @pytest.mark.parametrize("mesh", [(1, 8), (2, 4), (4, 2)])
 def test_golden_mesh_byte_identical(golden_dbs, mesh, monkeypatch):
-    """The device mesh (--shards): every shard on the CPU, scored by the
-    dense kernels' plain versions."""
+    """The device mesh (--shards) asked for on the CPU: every shard on
+    the CPU, scored by the dense kernels' plain versions."""
     from spacepharer_tpu_torch.parallel import sharding
     (qdb, tdb, cdb), text = golden_dbs
     shapes = []
@@ -92,7 +96,8 @@ def test_golden_mesh_byte_identical(golden_dbs, mesh, monkeypatch):
     monkeypatch.setattr(sharding, "sharded_allpairs_scores",
                         lambda m, *a, **kw: shapes.append(m.shape)
                         or orig(m, *a, **kw))
-    res = pm.predict_match(qdb, tdb, cdb, pm.PredictParams(mesh=mesh))
+    res = pm.predict_match(qdb, tdb, cdb, pm.PredictParams(mesh=mesh,
+                                                           device="cpu"))
     assert res.text == text
     assert shapes == [mesh, mesh]          # forward and control searches
 
@@ -101,15 +106,18 @@ def test_golden_mesh_matches_jax_package(golden_dbs, golden):
     (qdb, tdb, cdb), text = golden_dbs
     jax_dbs = [JaxSetDB.load(p) for p in _golden_paths(golden)]
     ref = jax_pm.predict_match(*jax_dbs, jax_pm.PredictParams(mesh=(2, 4)))
-    got = pm.predict_match(qdb, tdb, cdb, pm.PredictParams(mesh=(2, 4)))
+    got = pm.predict_match(qdb, tdb, cdb, pm.PredictParams(mesh=(2, 4),
+                                                           device="cpu"))
     assert got.text == ref.text == text
     assert got.match == ref.match
     assert got.cscore == ref.cscore and got.cscore_rev == ref.cscore_rev
 
 
-def test_golden_cli_shards(golden, tmp_path):
-    """The CLI's --shards 2,4 with --use-tpu 1: golden bytes."""
+def test_golden_cli_shards(golden, tmp_path, monkeypatch):
+    """The CLI's --shards 2,4 with --use-tpu 1 (asked for on the CPU):
+    golden bytes."""
     from spacepharer_tpu_torch import cli
+    monkeypatch.setenv(pm.DEVICE_ENV, "cpu")
     with open(os.path.join(golden, "result.tsv")) as fh:
         text = fh.read()
     out = tmp_path / "result.tsv"
@@ -121,8 +129,8 @@ def test_golden_cli_shards(golden, tmp_path):
 
 
 def test_golden_dense_prefilter_byte_identical(golden_dbs, monkeypatch):
-    """engine="device": the dense prefilter (on the CPU: the kernels'
-    plain versions) feeds the host scoring engine."""
+    """engine="device": the dense prefilter (asked for on the CPU: the
+    kernels' plain versions) feeds the host scoring engine."""
     from spacepharer_tpu_torch.ops import prefilter_dense
     (qdb, tdb, cdb), text = golden_dbs
     calls = []
@@ -131,15 +139,16 @@ def test_golden_dense_prefilter_byte_identical(golden_dbs, monkeypatch):
                         lambda *a, **kw: calls.append(kw["device"])
                         or orig(*a, **kw))
     params = pm.PredictParams(
-        prefilter=pm.PrefilterParams(engine="device"))
+        prefilter=pm.PrefilterParams(engine="device"), device="cpu")
     assert pm.predict_match(qdb, tdb, cdb, params).text == text
     assert calls == ["cpu", "cpu"]        # forward and control searches
 
 
-def test_golden_cli_dense_prefilter(golden, tmp_path):
+def test_golden_cli_dense_prefilter(golden, tmp_path, monkeypatch):
     """The CLI's --prefilter-engine device with --use-tpu 0 (only the
-    prefilter on the device): golden bytes."""
+    prefilter on the device, asked for on the CPU): golden bytes."""
     from spacepharer_tpu_torch import cli
+    monkeypatch.setenv(pm.DEVICE_ENV, "cpu")
     with open(os.path.join(golden, "result.tsv")) as fh:
         text = fh.read()
     out = tmp_path / "result.tsv"
@@ -148,3 +157,57 @@ def test_golden_cli_dense_prefilter(golden, tmp_path):
                    "--use-tpu", "0", "-v", "1"])
     assert rc == 0
     assert out.read_text() == text
+
+
+# route -> (its PredictParams fields, the words its error names)
+DEVICE_ROUTES = {
+    "use_tpu": ({"use_tpu": True}, "GPU scoring engine"),
+    "mesh": ({"mesh": (2, 4)}, "device mesh"),
+    "dense": ({"prefilter": pm.PrefilterParams(engine="device")},
+              "dense prefilter"),
+}
+
+
+@pytest.mark.parametrize("route", list(DEVICE_ROUTES))
+def test_device_route_without_a_card_raises(golden_dbs, route, monkeypatch):
+    """A device route asked for on a machine without a card, and not
+    asked for on the CPU, raises a RuntimeError naming the route instead
+    of running on the CPU."""
+    import torch
+    (qdb, tdb, _), _ = golden_dbs
+    monkeypatch.setattr(pm, "_start_torch_probe", lambda: None)
+    monkeypatch.setattr(pm, "_accelerator_present", lambda: False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fields, words = DEVICE_ROUTES[route]
+    with pytest.raises(RuntimeError, match=words):
+        pm.search_setdbs(qdb, tdb, pm.PredictParams(perform_nucl_aln=False,
+                                                    **fields))
+
+
+@pytest.mark.parametrize("ask,raises", [
+    pytest.param(None, RuntimeError, id="unset"),
+    pytest.param("cpu", None, id="cpu"),
+    pytest.param("gpu", ValueError, id="unknown"),
+])
+def test_cli_reads_the_device_ask(golden, tmp_path, monkeypatch, ask,
+                                  raises):
+    """The CLI takes PredictParams.device from DEVICE_ENV: --use-tpu 1
+    without a card raises unless it asks for the CPU, which gives the
+    golden bytes; any other value raises."""
+    from spacepharer_tpu_torch import cli
+    monkeypatch.setattr(pm, "_start_torch_probe", lambda: None)
+    monkeypatch.setattr(pm, "_accelerator_present", lambda: False)
+    if ask is None:
+        monkeypatch.delenv(pm.DEVICE_ENV, raising=False)
+    else:
+        monkeypatch.setenv(pm.DEVICE_ENV, ask)
+    out = tmp_path / "result.tsv"
+    argv = ["predictmatch", *_golden_paths(golden), str(out),
+            str(tmp_path / "tmp"), "--use-tpu", "1", "-v", "1"]
+    if raises is not None:
+        with pytest.raises(raises, match=pm.DEVICE_ENV):
+            cli.main(argv)
+        return
+    assert cli.main(argv) == 0
+    with open(os.path.join(golden, "result.tsv")) as fh:
+        assert out.read_text() == fh.read()

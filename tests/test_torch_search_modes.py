@@ -148,9 +148,11 @@ def test_sens_steps_same_sens_equals_single(dbs):
 
 def _stepped(module, engine):
     """sens_steps=3 from -s 4 with the nucleotide merge on: the host
-    engine, the device scoring engine forced on, or the dense prefilter."""
+    engine, the device scoring engine forced on, or the dense prefilter
+    (the port's device routes asked for on the CPU)."""
     p = module.PredictParams(threads=1, use_tpu={"host": False,
-                                                 "use_tpu": True}.get(engine))
+                                                 "use_tpu": True}.get(engine),
+                             **({"device": "cpu"} if module is pm else {}))
     if engine == "dense":
         p.prefilter = module.PrefilterParams(engine="device")
     p.prefilter.sens_steps = 3

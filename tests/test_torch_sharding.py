@@ -5,6 +5,7 @@ is exact, top-k indices included."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from spacepharer_tpu.parallel import sharding as jax_sh
 from spacepharer_tpu.parallel.distributed import (
@@ -139,6 +140,15 @@ def test_sharded_allpairs_scores_matches_jax(shape):
         bias_list=biases)
     assert got.dtype == np.int32 and got.shape == (5, 19)
     np.testing.assert_array_equal(got, ref)
+
+
+def test_make_mesh_without_a_card_raises(monkeypatch):
+    """The mesh's default devices are the cards; without one it raises
+    instead of sitting on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        sharding.make_mesh(2, 4)
+    assert sharding.make_mesh(2, 4, devices=["cpu"]).shape == (2, 4)
 
 
 def test_make_mesh_places_shards_round_robin():

@@ -10,11 +10,13 @@ integers, so every comparison is exact. The `cuda` cases hold the CUDA
 kernel against its plain version on the card and skip without one; JAX
 is imported only where the JAX side runs. The GPU scoring engine's
 branch of predictmatch._candidate_scores is run here on CPU tensors: it
-must go through device_pair_scores and never through the dense
-[key block x target union] entry.
+must go through device_pair_scores, which builds each query's composition
+bias with its profile (never _query_bias_i8 on the host), and never
+through the dense [key block x target union] entry.
 """
 import glob
 import os
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -201,21 +203,27 @@ def test_device_pair_scores_rejects_letters_outside_the_matrix():
 
 def _card_branch_on_cpu(monkeypatch):
     """Report a card, run device_pair_scores' plain version in its place
-    (recording the device each call asked for) and make the dense
-    [block x union] entry raise."""
+    (recording the device each call asked for, and that it was handed the
+    expected-score table and no biases) and make the dense [block x
+    union] entry and the host bias raise."""
     asked = []
     real = sw_packed.device_pair_scores
 
-    def on_cpu(*a, device):
+    def on_cpu(q_list, biases, *a, device, expected):
+        assert biases is None and expected is not None
         asked.append(device)
-        return real(*a, device="cpu")
+        return real(q_list, biases, *a, device="cpu", expected=expected)
 
     def dense(*a, **kw):
         raise AssertionError("the GPU branch built a [block x union] matrix")
 
+    def host_bias(*a, **kw):
+        raise AssertionError("the GPU branch built the bias on the host")
+
     monkeypatch.setattr(pm, "_accelerator_present", lambda: True)
     monkeypatch.setattr(sw_packed, "device_pair_scores", on_cpu)
     monkeypatch.setattr(sw_packed, "device_allpairs_scores", dense)
+    monkeypatch.setattr(pm, "_query_bias_i8", host_bias)
     return asked
 
 
@@ -223,16 +231,19 @@ def _card_branch_on_cpu(monkeypatch):
 def test_candidate_scores_card_branch_scores_pairs(monkeypatch, packed):
     """_candidate_scores on a card (no mesh) hands the pair list to
     device_pair_scores, with the search's packed targets or its per-target
-    views, and gives the scores of its CPU branch (the bucketed scan)."""
-    qs, ts, biases, cand_t, cand_off, _, _ = CASES["many_queries"]()
+    views, and gives the scores of its CPU branch (the bucketed scan, asked
+    for on the CPU, fed _query_bias_i8's biases: the card branch computes
+    the same biases with its profiles)."""
+    qs, ts, _, cand_t, cand_off, _, _ = CASES["many_queries"]()
     m40 = load_matrix("VTML40.out", 2.0)
     params = pm.PredictParams()
     t_flat, t_off = _packed_targets(ts)
     t_aa = [t_flat[t_off[i]:t_off[i + 1]] for i in range(len(ts))]
-    scan = pm._candidate_scores(qs, t_aa, cand_t, cand_off, biases, m40,
-                                params)
+    scan = pm._candidate_scores(qs, t_aa, cand_t, cand_off,
+                                pm._query_bias_i8(qs, m40), m40,
+                                replace(params, device="cpu"))
     asked = _card_branch_on_cpu(monkeypatch)
-    got = pm._candidate_scores(qs, t_aa, cand_t, cand_off, biases, m40,
+    got = pm._candidate_scores(qs, t_aa, cand_t, cand_off, None, m40,
                                params,
                                t_packed=(t_flat, t_off) if packed else None)
     assert asked == ["cuda"]
@@ -242,7 +253,8 @@ def test_candidate_scores_card_branch_scores_pairs(monkeypatch, packed):
 def test_card_branch_gives_the_golden_bytes(golden, monkeypatch):
     """predict_match with the GPU engine forced on and its card branch
     run on CPU tensors: the golden result.tsv, both searches through
-    device_pair_scores."""
+    device_pair_scores with the bias built beside the profile (the plain
+    version of csrc/pair_profile.cu), none on the host."""
     (qpath,) = {os.path.realpath(p) for p in
                 glob.glob(os.path.join(golden, "tmp", "*", "qsetdb"))}
     dbs = [SetDB.load(p) for p in (qpath, os.path.join(golden, "targets"),
