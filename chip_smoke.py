@@ -5,13 +5,14 @@
 
 Phase 0  requires CUDA, prints the card (nvidia-smi) and builds the
          hand-written kernels (csrc/sw_allpairs.cu with B1's dense and
-         pair-list entries, csrc/pair_profile.cu, csrc/prefilter_dense.cu
-         and csrc/sw_dense.cu, one nvcc each, in parallel, sm_90a),
-         printing each entry's registers and spills, and counts in the
-         SASS of the built libraries (cuobjdump -sass), per kernel
-         function, the DPX min/max opcodes of sw_allpairs and sw_dense,
-         the float64 opcodes of pair_profile and the integer MMA opcodes
-         of prefilter_dense; it fails if the emit kernel has no IMMA.
+         pair-list entries, csrc/pair_profile.cu, csrc/prefilter_dense.cu,
+         csrc/prefilter_streams.cu and csrc/sw_dense.cu, one nvcc each, in
+         parallel, sm_90a), printing each entry's registers and spills,
+         and counts in the SASS of the built libraries (cuobjdump -sass),
+         per kernel function, the DPX min/max opcodes of sw_allpairs and
+         sw_dense, the float64 opcodes of pair_profile, the integer MMA
+         opcodes of prefilter_dense and the warp match and vote opcodes of
+         prefilter_streams; it fails if the emit kernel has no IMMA.
 Phase 1  holds B1's dense entry against its plain PyTorch version on the
          card, exactly, on the test corpora and on a production-shaped
          workload (the golden bundle's 305 query ORFs x 691 target ORFs,
@@ -52,32 +53,44 @@ Phase 3  builds a real-size corpus from the golden bundle and --seed
          the target axis (phase 3's query side against GATE_TARGET_COPIES
          mutated copies of each golden genome) both engines' medians
          beside the lines' predictions for its candidate cells.
-Phase 4  the dense prefilter's kernels (counts and emit): (a) against
-         their plain versions, exactly (the emit against the plain emit
-         of all rows and of the compacted rows, as a set per tile), on
-         the `cuda` cases of tests/test_torch_prefilter_dense.py, and
-         match_pairs with small chunk and emit bounds against the numpy
-         oracle; (b) at the production shape (phase 3's query k-mer rows
-         x its whole masked target), exact and timed (each kernel alone
-         on the compacted rows, the emit also at other run caps; the
-         compaction and the emit's run starts apart; the counts' wrapper
-         with the compaction and the emit's with its run starts and
-         check), with each kernel's share of its bound, torch._int_mm
-         on the same compacted int8 product in column blocks (the
-         library yardstick; the port never calls it), and two
-         of the auto gate's constants
-         (the whole dense pass's cells per second, and the fixed cost of
-         a dense run in a fresh process); (c) `predictmatch` through the
-         CLI on phase 3's corpus (its own DB copy) with
-         --prefilter-engine device --use-tpu 0, in this process so that
-         the launches are counted, whose text must equal phase 3's
-         host-engine text with both kernels launched, with where the
-         route's time goes (the dense pass, hits_to_streams, finalize,
-         alignment); (d) the dense and host routes in fresh processes, as
-         a user runs them, at two shapes (phase 3's corpus, and its first
-         SMALL_SETS spacer sets against the same target), their texts
-         equal, and the gate's host-work terms fitted to the two walls'
-         differences with (b)'s host walk terms.
+Phase 4  the dense prefilter's kernels (counts and emit) and its
+         stream kernels (csrc/prefilter_streams.cu: rank tables, key
+         build, run reduction): (a) counts and emit against their plain
+         versions, exactly (the emit against the plain emit of all rows
+         and of the compacted rows, as a set per tile), on the `cuda`
+         cases of tests/test_torch_prefilter_dense.py, and match_pairs
+         with small chunk and emit bounds against the numpy oracle; the
+         stream kernels against their plain versions on those cases' own
+         hits and on the random hits of
+         tests/test_torch_prefilter_streams.py (keys too wide for one
+         sort among them); (b) at the production shape (phase 3's query
+         k-mer rows x its whole masked target), exact and timed (each
+         kernel alone on the compacted rows, the emit also at other run
+         caps; the compaction and the emit's run starts apart; the
+         counts' wrapper with the compaction and the emit's with its run
+         starts and check), with each kernel's share of its bound,
+         torch._int_mm on the same compacted int8 product in column
+         blocks (the library yardstick; the port never calls it), two of
+         the auto gate's constants (the whole dense pass's cells per
+         second, and the fixed cost of a dense run in a fresh process),
+         and the three stream kernels on the dense pass's own hits,
+         exact against their plain versions on the card and each timed
+         alone (CUDA events) beside its bound in bytes, the sort
+         (torch.sort) timed apart; (c) `predictmatch` through the CLI on
+         phase 3's corpus (its own DB copy) with --prefilter-engine
+         device --use-tpu 0, in this process so that the launches are
+         counted, whose text must equal phase 3's host-engine text with
+         every dense and stream kernel launched, with where
+         device_prefilter's time goes (the dense pass, the query packing,
+         the stream rebuild with each kernel and the sort on the card,
+         the batch finalize, the rest) and the alignment; (d) the dense
+         and host routes in fresh processes, as a user runs them, at
+         four shapes (phase 3's corpus, its first SMALL_SETS spacer sets
+         against the same target, its query side GATE_BIG_COPIES times
+         over, and its query side against phase 3(b)'s target-axis
+         point), their texts equal, and the gate's fixed cost and
+         host-work terms fitted to the four walls' differences with
+         (b)'s cell rate and phase 3(b)'s host walk terms.
 Phase 5  the device mesh (--shards) and its dense SW kernels B3 (one
          query) and B4 (a query batch), csrc/sw_dense.cu: (a) both against
          their plain versions, exactly, on the `cuda` cases of
@@ -170,7 +183,15 @@ KERNELS = {   # library name -> (source, the TPU kernel it replaces)
                         "spacepharer_tpu/ops/prefilter_dense.py:256"),
     "sw_dense": ("spacepharer_tpu_torch/csrc/sw_dense.cu",
                  "spacepharer_tpu/ops/sw_pallas.py:124"),
+    # no TPU kernel: the JAX package's host hits_to_streams (numpy)
+    "prefilter_streams": ("spacepharer_tpu_torch/csrc/prefilter_streams.cu",
+                          "spacepharer_tpu/ops/prefilter_dense.py:386"),
 }
+# the stream rebuild's three wrappers (ops/prefilter_dense.py), each a
+# kernel entry of the report: its name there, its launch counter
+STREAM_KERNELS = (("prefilter_streams_ranks", "ranks"),
+                  ("prefilter_streams_keys", "keys"),
+                  ("prefilter_streams_runs", "runs"))
 LAUNCHER = os.path.join(REPO, "bin", "spacepharer_torch")
 BLASTN_FIXTURES = ("fix", "fix2", "fix3")   # tests/blastn_fixtures.tar.gz
 EMIT_REPLACES = "spacepharer_tpu/ops/prefilter_dense.py:228"
@@ -190,8 +211,9 @@ GATE_TARGET_COPIES = 300  # phase 3(b): mutated copies of each genome, the
 # phase 3(b): alternating fresh runs per engine at each query-side shape
 # (copies) and at the target-axis point ("t"); one run at x30, whose two
 # runs per engine took ~340 s of the phase's 679 s on an NVIDIA H100 80GB
-# HBM3 (700 W) machine
-GATE_SHAPE_RUNS = {1: 3, GATE_BIG_COPIES: 2, GATE_HUGE_COPIES: 1, "t": 2}
+# HBM3 (700 W) machine, and one on the target axis, which phase 4(d) runs
+# again for the dense gate
+GATE_SHAPE_RUNS = {1: 3, GATE_BIG_COPIES: 2, GATE_HUGE_COPIES: 1, "t": 1}
 P3_PROFILE_CALLS = 20  # phase 3: calls of the profile kernel timed alone
 P4_KERNEL_CALLS = 3   # phase 4(b): calls per timed kernel chain
 P5_KERNEL_CALLS = 5   # phase 5(b): calls per timed kernel chain
@@ -201,7 +223,8 @@ P5_KERNEL_CALLS = 5   # phase 5(b): calls per timed kernel chain
 SASS_COUNTED = {"sw_dense": re.compile(r"MNMX"),
                 "sw_allpairs": re.compile(r"MNMX"),
                 "pair_profile": re.compile(r"^D(ADD|MUL|FMA)|^MUFU"),
-                "prefilter_dense": re.compile(r"^IMMA|^LDSM")}
+                "prefilter_dense": re.compile(r"^IMMA|^LDSM"),
+                "prefilter_streams": re.compile(r"^MATCH|^VOTE")}
 # phase 4(b): emit run caps timed beside prefilter_dense.EMIT_RUN
 EMIT_RUN_SWEEP = (16, 32, 64, 128, 256)
 # the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet)
@@ -1119,7 +1142,8 @@ def phase3_gates(p3, golden, seed):
           f"{'GPU' if engages else 'host'} engine")
     print(f"phase3 (b) in {time.perf_counter() - t_phase:.1f} s")
 
-    return {"post_s_per_res": per_res, "walk_s_per_kmer": per_kmer}
+    return {"post_s_per_res": per_res, "walk_s_per_kmer": per_kmer,
+            "pristine": pristine}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1128,6 +1152,9 @@ def _test_module(name):
     """tests/<name>.py, loaded by path: phases 4 and 5 run its `cuda`
     cases."""
     import importlib.util
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:       # test modules import each other
+        sys.path.insert(0, tests)
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(REPO, "tests", name + ".py"))
     mod = importlib.util.module_from_spec(spec)
@@ -1221,6 +1248,161 @@ def phase4_cases(dev):
         if not same:
             raise AssertionError(f"phase4 {name}: match_pairs != oracle")
     return errs
+
+
+def phase4_stream_cases():
+    """(a) continued: the stream kernels (csrc/prefilter_streams.cu)
+    against their plain versions on the card, on the dense pass's own
+    hits of every `cuda` case with six offsets and on the random hits of
+    tests/test_torch_prefilter_streams.py (keys wider than the bit
+    budget, pad hits, no hits, repeated halves among them). Returns the
+    largest difference."""
+    import torch
+    from spacepharer_tpu_torch.ops import prefilter_dense as pd
+    tests = _test_module("test_torch_prefilter_streams")
+    err = 0
+    for name in tests.SIX_OFFSET_CASES:
+        params, scores, batch, flat, starts, bval = tests.card_case(name)
+        gi, gj = pd.match_pairs(batch, flat, bval, scores,
+                                params.kmer_threshold(), device="cuda")
+        e, launched = tests.card_streams_check(batch, gi, gj, flat, starts,
+                                               scores)
+        print(f"phase4 streams {name}: {gi.numel()} hits; kernels vs plain "
+              f"max err {e}; launches {launched}")
+        err = max(err, e)
+    key_bits = pd.KEY_BITS
+    try:
+        for name, kw in (("random", {}), ("wide_keys", dict(n_queries=30)),
+                         ("pad_hits", dict(pad_hits=300)),
+                         ("no_hits", dict(n_hits=0)),
+                         ("repeated_halves", dict(alphabet=2,
+                                                  n_queries=20))):
+            pd.KEY_BITS = 0 if name == "wide_keys" else key_bits
+            batch, gi, gj, flat, starts, seed_m = tests.stream_case(7, **kw)
+            e, launched = tests.card_streams_check(
+                batch, torch.from_numpy(gi.astype(np.int32)).cuda(),
+                torch.from_numpy(gj.astype(np.int64)).cuda(), flat, starts,
+                seed_m.scores)
+            print(f"phase4 streams random {name}: {len(gi)} hits; kernels "
+                  f"vs plain max err {e}; launches {launched}")
+            err = max(err, e)
+    finally:
+        pd.KEY_BITS = key_bits
+    if err:
+        raise AssertionError("phase4 streams: kernel != plain")
+    return err
+
+
+def _streams_ms(name, fn, args, n=P4_KERNEL_CALLS):
+    """(mean ms of one stream wrapper's kernel launches alone over n calls
+    of fn(*args), by the CUDA events the wrapper records into
+    prefilter_dense.streams_events; last output). One warm-up call."""
+    import torch
+    from spacepharer_tpu_torch.ops import prefilter_dense as pd
+    fn(*args)
+    pd.streams_events = []
+    try:
+        for _ in range(n):
+            out = fn(*args)
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for nm, ev in pd.streams_events
+                 for a, b in ev if nm == name)
+    finally:
+        pd.streams_events = None
+    return ms / n, out
+
+
+def _event_ms(fn, args, n=P4_KERNEL_CALLS):
+    """(mean ms of n calls of fn(*args) by CUDA events around them, last
+    output): for the sort, a library call. One warm-up call."""
+    import torch
+    fn(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        out = fn(*args)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n, out
+
+
+def _max_diff(a, b):
+    """max |a - b| of two integer tensors of one shape (0 when empty);
+    tensors of different shapes fail."""
+    if a.shape != b.shape:
+        raise AssertionError(f"phase4 streams: shapes {tuple(a.shape)} and "
+                             f"{tuple(b.shape)} differ")
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def phase4_streams(batch, gi, gj, flat, starts, scores):
+    """(b) continued: the stream kernels at the production shape, on the
+    dense pass's own hits (gi, gj on the card), each against its plain
+    version on the same card tensors (max error 0) and timed alone by
+    CUDA events, with the sort (torch.sort) timed apart and each kernel's
+    bound in bytes (each input read once, each output written once) at
+    HBM_BYTES_PER_S."""
+    import torch
+    from spacepharer_tpu_torch.ops import prefilter_dense as pd
+    q_flat, offsets, t, ts, seed, qs, seq_bits, narrow = pd.stream_inputs(
+        batch, flat, starts, scores, gi.device)
+    n_keys = len(batch.keys)
+    r_ms, (slot_of, tables) = _streams_ms(
+        "ranks", pd.stream_rank_tables,
+        (q_flat, offsets, gi, batch.n_rows, seed))
+    key_args = (gi, gj, q_flat, offsets, batch.n_rows, t, ts, slot_of,
+                tables, seq_bits, narrow)
+    k_ms, keys = _streams_ms("keys", pd.stream_keys, key_args)
+    sort_ms, perm = _event_ms(pd.sort_keys, (keys[0], keys[1], narrow))
+    run_args = (perm, *keys[:3], gi, qs, n_keys)
+    u_ms, runs = _streams_ms("runs", pd.stream_runs, run_args)
+    plain, plain_ms = {}, {}
+    for name, fn, args in (
+            ("ranks", pd.stream_rank_tables_plain,
+             (q_flat, offsets, gi, batch.n_rows, seed)),
+            ("keys", pd.stream_keys_plain, key_args),
+            ("runs", pd.stream_runs_plain, run_args)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain[name] = fn(*args)
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t0) * 1e3
+    n_runs = int(plain["runs"][3])
+    errs = {"ranks": max(_max_diff(slot_of, plain["ranks"][0]),
+                         _max_diff(tables, plain["ranks"][1])),
+            "keys": max(_max_diff(a, b) for a, b in zip(keys, plain["keys"])),
+            "runs": max([_max_diff(runs[i][:n_runs], plain["runs"][i])
+                         for i in (0, 1)]
+                        + [_max_diff(runs[i], plain["runs"][i])
+                           for i in (2, 3)])}
+    n = gi.numel()
+    work = {"ranks": _nbytes(gi, q_flat, seed, slot_of, tables)
+            + 2 * 4 * pd.N_QUERY_HALVES,            # flags, list of halves
+            "keys": _nbytes(gi, gj, q_flat, t, ts, slot_of, tables, *keys),
+            "runs": _nbytes(*run_args[:-1]) + 6 * n_runs
+            + _nbytes(runs[2], runs[3])}             # m_t, m_d; bounds
+    out = {}
+    for name, ms in (("ranks", r_ms), ("keys", k_ms), ("runs", u_ms)):
+        bound, bound_by = _bound(work[name], 0, INT8_OPS_PER_S)
+        out[name] = (errs[name], ms, plain_ms[name], (bound, bound_by))
+        print(f"phase4 production streams {name}: kernel alone {ms:.4f} ms, "
+              f"bound {bound:.6g} ms ({bound_by}, {work[name]} bytes), share "
+              f"{bound / ms:.4f}; plain on the card {plain_ms[name]:.3f} ms; "
+              f"max|kernel-plain| = {errs[name]}")
+    # one sort of the packed keys reads them and writes them and their
+    # indices (two stable sorts and two gathers when they do not fit)
+    sort_bytes = 24 * n
+    print(f"phase4 production streams: {n} hits, {tables.shape[0]} distinct "
+          f"query halves, {n_runs} stream entries ({n_keys} query keys), "
+          f"keys {'packed in 63 bits' if narrow else 'in two sorts'}; sort "
+          f"(torch.sort) {sort_ms:.4f} ms (one sort's {sort_bytes} bytes at "
+          f"{HBM_BYTES_PER_S:.3g} B/s: "
+          f"{sort_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); the rebuild's "
+          f"kernels and sort {r_ms + k_ms + sort_ms + u_ms:.4f} ms")
+    if any(errs.values()):
+        raise AssertionError("phase4 production streams: kernel != plain")
+    return out
 
 
 def _chain(fn, inputs, rest, n):
@@ -1374,7 +1556,8 @@ def phase4_production(dev, p3):
     # fixed cost of a dense run in a fresh process
     nk = sum(max(len(q_all[k]) - batch.span + 1, 0) for k in keys)
     t0 = time.perf_counter()
-    pd.match_pairs(batch, flat, bval, seed_m.scores, kmer_thr, "cuda")
+    gi, gj = pd.match_pairs(batch, flat, bval, seed_m.scores, kmer_thr,
+                            "cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     proc = subprocess.run([sys.executable, "-c",
@@ -1388,10 +1571,12 @@ def phase4_production(dev, p3):
     print(f"phase4 gate constants: whole dense pass {wall:.3f} s -> "
           f"{rate:.6g} cells/s ({nk} k-mers x {len(flat)} residues); fixed "
           f"cost of a dense run in a fresh process {fixed:.3f} s")
+    streams = phase4_streams(batch, gi, gj, flat, starts, seed_m.scores)
     return {"counts": (c_err, k_ms, p_ms), "emit": (e_err, e_k_ms, e_p_ms),
             "library_ms": {"counts": lib_ms, "emit": None},
             "fixed_s": fixed, "cells_per_s": rate,
-            "work": {"counts": counts_work, "emit": emit_work}}
+            "work": {"counts": counts_work, "emit": emit_work},
+            "streams": streams}
 
 
 def _int_mm_ms(qexp_c, inputs, width=16384):
@@ -1440,40 +1625,58 @@ def phase4_predictmatch(p3, tmp):
     """(c): predictmatch through the CLI with the dense prefilter on the
     card and the host scoring engine; the text must equal phase 3's.
     CUDA is initialised in this process, so the control search is not
-    forked: both searches run here, one after the other, through B2."""
+    forked: both searches run here, one after the other, through B2 and
+    the stream kernels, whose launches are counted (every count set to 0
+    just before). Prints where device_prefilter's time goes: the dense
+    pass, the query packing, the stream rebuild (each kernel and the sort
+    on the card by CUDA events; the read-back and host work the rest of
+    it), the batch finalize and the rest."""
+    import torch
     from spacepharer_tpu_torch.logging import timings
-    from spacepharer_tpu_torch.ops import align, prefilter
+    from spacepharer_tpu_torch.ops import align
     from spacepharer_tpu_torch.ops import prefilter_dense as pd
     out = os.path.join(tmp, "p4", "dense.tsv")
     os.makedirs(os.path.dirname(out))
-    match_pairs = pd.match_pairs
-    pass_s = []
+    sort_keys, sort_events = pd.sort_keys, []
 
-    def _timed(*a, **kw):           # match_pairs ends in a host fetch
-        t = time.perf_counter()
-        hits = match_pairs(*a, **kw)
-        pass_s.append(time.perf_counter() - t)
-        return hits
+    def _sort_timed(*a):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        perm = sort_keys(*a)
+        ev[1].record()
+        sort_events.append(ev)
+        return perm
 
-    pd.match_pairs = _timed
     pd.counts_launches = pd.emit_launches = pd.cells = 0
+    pd.ranks_launches = pd.keys_launches = pd.runs_launches = 0
+    pd.sort_keys, pd.streams_events = _sort_timed, []
     before = timings()
     split = {}
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stderr(io.StringIO()), _timed_calls(split, (
-                (pd, "device_prefilter", "device_prefilter"),
-                (pd, "hits_to_streams", "hits_to_streams"),
-                (prefilter, "_finalize_native", "finalize"),
+                (pd, "device_prefilter_arrays", "device_prefilter"),
+                (pd, "match_pairs", "dense pass"),
+                (pd, "build_query_batch", "query packing"),
+                (pd, "rebuild_streams", "stream rebuild"),
+                (pd, "finalize_streams", "batch finalize"),
                 (align, "align_query_batch", "alignment"))):
             rc = _cli(["predictmatch", *p3["paths"]["dense"], out,
                        os.path.join(tmp, "p4", "tmp"), "--prefilter-engine",
                        "device", "--use-tpu", "0", "-v", "1"])
+        torch.cuda.synchronize()
+        card_ms = collections.Counter()
+        for name, ev in pd.streams_events:
+            card_ms[name] += sum(a.elapsed_time(b) for a, b in ev)
+        card_ms["sort"] = sum(a.elapsed_time(b) for a, b in sort_events)
     finally:
-        pd.match_pairs = match_pairs
+        pd.sort_keys, pd.streams_events = sort_keys, None
     wall = time.perf_counter() - t0
     launches = {"prefilter_dense_counts": pd.counts_launches,
                 "prefilter_dense_emit": pd.emit_launches}
+    for name, counter in STREAM_KERNELS:
+        launches[name] = getattr(pd, f"{counter}_launches")
     after = timings()
     if rc != 0:
         raise AssertionError(f"phase4 dense predictmatch exited {rc}")
@@ -1484,34 +1687,62 @@ def phase4_predictmatch(p3, tmp):
           f"{after.get('search', 0) - before.get('search', 0):.3f} s, then "
           f"search_rev "
           f"{after.get('search_rev', 0) - before.get('search_rev', 0):.3f} "
-          f"s; dense passes {pass_s}); launches {launches}; dense cells on "
-          f"the card {pd.cells}; text identical to the host engine's: "
-          f"{same}")
+          f"s); launches {launches}; dense cells on the card {pd.cells}; "
+          f"text identical to the host engine's: {same}")
     dp = split.get("device_prefilter", 0.0)
-    parts = (("the dense pass", sum(pass_s)),
-             ("hits_to_streams", split.get("hits_to_streams", 0.0)),
-             ("finalize", split.get("finalize", 0.0)))
+    rebuild = split.get("stream rebuild", 0.0)
+    on_card = [(k, card_ms[c] / 1e3) for k, c in (
+        ("rank tables", "ranks"), ("key build", "keys"), ("sort", "sort"),
+        ("run reduction", "runs"))]
+    parts = [(k, split.get(k, 0.0)) for k in ("dense pass", "query packing",
+                                              "stream rebuild",
+                                              "batch finalize")]
     print(f"phase4 dense route split over both searches: device_prefilter "
           f"{dp:.3f} s (" + ", ".join(f"{k} {v:.3f} s" for k, v in parts)
-          + f", the rest {dp - sum(v for _, v in parts):.3f} s); alignment "
+          + f", the rest {dp - sum(v for _, v in parts):.3f} s); the stream "
+          f"rebuild on the card: " + ", ".join(f"{k} {v * 1e3:.3f} ms"
+                                               for k, v in on_card)
+          + f", its read-back and host work "
+          f"{rebuild - sum(v for _, v in on_card):.3f} s; alignment "
           f"(align_query_batch) {split.get('alignment', 0.0):.3f} s")
     if not same:
         raise AssertionError("phase4: dense-prefilter text differs from "
                              "the host engine's")
     if min(launches.values()) <= 0:
-        raise AssertionError("phase4: a dense kernel was never launched")
+        raise AssertionError("phase4: a dense or stream kernel was never "
+                             "launched")
     return launches
+
+
+def fit_dense_terms(rows):
+    """((fixed s, s per query k-mer, s per target residue), residuals s):
+    the non-negative least-squares fit of x = fixed + a * k-mers + b *
+    residues through rows of (k-mers, residues, x), x the seconds phase
+    4(d) leaves to the dense route's fixed cost and host work. No term
+    is negative: each is time the route spends."""
+    from scipy.optimize import nnls
+    m = np.array(rows, dtype=np.float64)
+    a = np.column_stack([np.ones(len(m)), m[:, :2]])
+    coef, _ = nnls(a, m[:, 2])
+    return tuple(float(c) for c in coef), [round(float(r), 3)
+                                          for r in m[:, 2] - a @ coef]
 
 
 def phase4_routes(p3, p4, walk):
     """(d): the dense and host routes in fresh processes, as a user runs
-    them (each forks its control search onto the host engine), at phase
-    3's shape and at its small query side against the same target; the
-    texts must agree. Fits the gate's two host-work terms of the dense
-    route (per query k-mer, per target residue) so that its estimate of
-    dense less host seconds equals the measured difference of the walls
-    at both shapes, given (b)'s fixed cost and cell rate and the host
-    walk's terms that phase 3(b) measured (`walk`).
+    them (each forks its control search onto the host engine), at four
+    shapes: phase 3's corpus, its small query side against the same
+    target, its query side GATE_BIG_COPIES times over and its query side
+    against phase 3(b)'s target-axis point (GATE_TARGET_COPIES mutated
+    copies of each golden genome), the last two on fresh copies of phase
+    3(b)'s DBs; the texts must agree at each. Fits the gate's dense-route
+    terms by non-negative least squares (fit_dense_terms), so that the
+    model's dense less host seconds matches the measured difference of
+    the walls: a fixed cost
+    (_DENSE_FIXED_S: import torch, the CUDA context, the first launches,
+    all a fresh process pays once) and the host work per query k-mer and
+    per target residue, given (b)'s cell rate and the host walk's terms
+    that phase 3(b) measured (`walk`).
 
     The small query side runs with --fdr 0: at the default 0.05 the FDR
     step of the shared host code (stats/fdr.py) indexes past its score
@@ -1519,15 +1750,28 @@ def phase4_routes(p3, p4, walk):
     routes pass the same flag, and the search stages they differ in do
     not read it."""
     from spacepharer_tpu_torch.pipeline import predictmatch as pm
-    base, paths = p3["base"], p3["paths"]
+    base, paths = p3["base"], dict(p3["paths"])
+    for shape, src in (("big", walk["pristine"][GATE_BIG_COPIES]),
+                       ("t", walk["pristine"]["t"])):
+        for route in ("host", "dense"):
+            dest = os.path.join(base, f"{route}_{shape}")
+            shutil.copytree(src, dest)
+            paths[f"{route}_{shape}"] = [
+                os.path.join(dest, n)
+                for n in ("query", "targets", "targets_rev")]
     small = ("--fdr", "0")
-    h_wall, h_text, _ = _fresh_run(base, paths, "host_small", "--use-tpu",
-                                   "0", *small)
-    x, nks = [], []
-    for label, run, host_wall, host_text, flags in (
-            ("phase-3 corpus", "dense_fresh", p3["host_wall"],
-             p3["host_text"], ()),
-            ("small query side", "dense_small", h_wall, h_text, small)):
+    shapes = (("phase-3 corpus", "fresh", ()),
+              ("small query side", "small", small),
+              (f"query side x{GATE_BIG_COPIES}", "big", ()),
+              (f"target axis x{GATE_TARGET_COPIES // COPIES}", "t", ()))
+    rows = []
+    for label, shape, flags in shapes:
+        if shape == "fresh":
+            host_wall, host_text = p3["host_wall"], p3["host_text"]
+        else:
+            host_wall, host_text, _ = _fresh_run(
+                base, paths, f"host_{shape}", "--use-tpu", "0", *flags)
+        run = f"dense_{shape}"
         wall, text, _ = _fresh_run(base, paths, run, "--prefilter-engine",
                                    "device", "--use-tpu", "0", *flags)
         nk, t_res = _gate_shape(paths[run])
@@ -1540,19 +1784,26 @@ def phase4_routes(p3, p4, walk):
         if text != host_text:
             raise AssertionError(f"phase4 {label}: dense and host routes' "
                                  f"texts differ")
-        x.append(wall - host_wall + t_res * walk["post_s_per_res"]
-                 + nk * walk["walk_s_per_kmer"] - p4["fixed_s"]
-                 - nk * t_res / p4["cells_per_s"])
-        nks.append(nk)
-    per_kmer = (x[0] - x[1]) / (nks[0] - nks[1])
-    per_res = (x[1] - per_kmer * nks[1]) / t_res
-    print(f"phase4 gate fit: host work of the dense route {per_kmer:.6g} s "
-          f"per query k-mer (_DENSE_HOST_S_PER_KMER in the code "
-          f"{pm._DENSE_HOST_S_PER_KMER:.6g}), {per_res:.6g} s per target "
-          f"residue (_DENSE_HOST_S_PER_RES in the code "
-          f"{pm._DENSE_HOST_S_PER_RES:.6g}); with phase 3(b)'s host walk "
-          f"terms, phase 4(b)'s cell rate {p4['cells_per_s']:.6g} and fixed "
-          f"cost {p4['fixed_s']:.3f} s")
+        # the measured difference less the model's known terms: what the
+        # dense route's fixed cost and host work have to account for
+        rows.append((nk, t_res, wall - host_wall
+                     + t_res * walk["post_s_per_res"]
+                     + nk * walk["walk_s_per_kmer"]
+                     - nk * t_res / p4["cells_per_s"]))
+    (fixed, per_kmer, per_res), resid = fit_dense_terms(rows)
+    print(f"phase4 gate fit (non-negative least squares over the "
+          f"{len(rows)} shapes, rows (k-mers, residues, s) "
+          f"{[(nk, tr, round(x, 3)) for nk, tr, x in rows]}): the "
+          f"dense route's fixed cost in a fresh process {fixed:.6g} s "
+          f"(_DENSE_FIXED_S in the code {pm._DENSE_FIXED_S:.6g}; (b)'s probe "
+          f"from an imported torch {p4['fixed_s']:.3f} s), host work "
+          f"{per_kmer:.6g} s per query k-mer (_DENSE_HOST_S_PER_KMER in the "
+          f"code {pm._DENSE_HOST_S_PER_KMER:.6g}), {per_res:.6g} s per "
+          f"target residue (_DENSE_HOST_S_PER_RES in the code "
+          f"{pm._DENSE_HOST_S_PER_RES:.6g}); residuals s {resid}; with "
+          f"phase 3(b)'s host "
+          f"walk terms and phase 4(b)'s cell rate {p4['cells_per_s']:.6g} "
+          f"(_DENSE_CELLS_PER_S in the code {pm._DENSE_CELLS_PER_S:.6g})")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2021,7 +2272,8 @@ def phase6(dev, golden, tmp, smi):
                              ("dense", ["--prefilter-engine", "device",
                                         "--use-tpu", "0"])):
             before = (sw_packed.pair_launches, pd.counts_launches,
-                      pd.emit_launches)
+                      pd.emit_launches, pd.ranks_launches, pd.keys_launches,
+                      pd.runs_launches)
             out_tsv = os.path.join(base, f"{label.replace(' ', '_')}.tsv")
             t0 = time.perf_counter()
             with contextlib.redirect_stderr(io.StringIO()):
@@ -2038,9 +2290,10 @@ def phase6(dev, golden, tmp, smi):
             launches[label] = {
                 name: now - was for name, now, was in zip(
                     ("sw_pairs", "prefilter_dense_counts",
-                     "prefilter_dense_emit"),
+                     "prefilter_dense_emit", *(n for n, _ in STREAM_KERNELS)),
                     (sw_packed.pair_launches, pd.counts_launches,
-                     pd.emit_launches),
+                     pd.emit_launches, pd.ranks_launches, pd.keys_launches,
+                     pd.runs_launches),
                     before)}
     finally:
         pd.match_pairs = match_pairs
@@ -2049,10 +2302,12 @@ def phase6(dev, golden, tmp, smi):
     if launches["use-tpu 1"]["sw_pairs"] <= 0:
         raise AssertionError("phase6: easy-predict --use-tpu 1 never "
                              "launched the pair kernel")
-    if min(launches["dense"]["prefilter_dense_counts"],
-           launches["dense"]["prefilter_dense_emit"]) <= 0:
+    if min(launches["dense"][name] for name in (
+            "prefilter_dense_counts", "prefilter_dense_emit",
+            *(n for n, _ in STREAM_KERNELS))) <= 0:
         raise AssertionError("phase6: easy-predict --prefilter-engine "
-                             "device never launched both B2 kernels")
+                             "device never launched both B2 kernels and "
+                             "the stream kernels")
 
     # (c) B2 counts and emit on each dense search's own inputs (the
     # golden query k-mer rows x the golden masked target, its ragged
@@ -2240,6 +2495,7 @@ def main():
         p3 = phase3(golden, tmp, args.seed, clock_hz)
         walk = phase3_gates(p3, golden, args.seed)
         case_errs = phase4_cases(dev)
+        stream_case_err = phase4_stream_cases()
         p4 = phase4_production(dev, p3)
         p4_launches = phase4_predictmatch(p3, tmp)
         phase4_routes(p3, p4, walk)
@@ -2295,6 +2551,15 @@ def main():
                        "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": bound_by,
                        "library_ms": p4["library_ms"][part]})
+    ps_src, ps_replaces = KERNELS["prefilter_streams"]
+    for name, part in STREAM_KERNELS:
+        err, ms, plain_ms, (bound, bound_by) = p4["streams"][part]
+        report.append({"name": name, "route": "cuda", "source": ps_src,
+                       "replaces": ps_replaces,
+                       "launches": p4_launches[name],
+                       "max_abs_err": max(stream_case_err, err), "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by, "library_ms": None})
     for name, replaces, key, case_err, extra_err in (
             ("sw_dense_one_query", ONE_QUERY_REPLACES, "b3", p5_errs[0], 0),
             ("sw_dense_batch", sd_replaces, "b4", p5_errs[1],

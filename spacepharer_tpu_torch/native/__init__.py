@@ -165,6 +165,21 @@ def get_lib():
     lib.prefilter_batch_fetch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
+    lib.prefilter_finalize_batch.restype = ctypes.c_int64
+    lib.prefilter_finalize_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,         # streams
+        ctypes.c_int64,                                            # queries
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,         # letters
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,           # ungapped
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,          # targets
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,            # params
+    ]
+    lib.local_bias_batch.restype = None
+    lib.local_bias_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,          # queries
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,          # matrix
+        ctypes.c_int32, ctypes.c_void_p,                           # on, out
+    ]
     lib.prefilter_batch_free.restype = None
     lib.prefilter_batch_free.argtypes = []
     lib.scan_contigs_batch.restype = ctypes.c_int64

@@ -12,6 +12,10 @@
  * bit-identical to the per-query Python driver (tests/
  * test_native_kernels.py batch-vs-oracle parity).
  *
+ * prefilter_finalize_batch runs the finalize stage alone, under the same
+ * pool, on match streams the caller built (the dense prefilter's, rebuilt
+ * on the card).
+ *
  * align_forward_batch / align_traceback_batch batch the alignment
  * driver the same way: per-query SW profiles (ssw_init bias,
  * StripedSmithWaterman.cpp:700-706), forward scores for every
@@ -243,6 +247,13 @@ typedef struct {
     int8_t *q_wid;
     volatile int64_t *next_q;
     volatile int *error;
+    /* prefilter_finalize_batch only: the match streams of every query
+     * (query qi's at key_off[qi] .. key_off[qi + 1] - 1) and the
+     * queries' flat composition bias */
+    const int32_t *m_t;
+    const uint16_t *m_d;
+    const int64_t *key_off;
+    const double *bias;
 } pf_shared_t;
 
 typedef struct { int32_t rank; int64_t idx; } pf_loc_t;
@@ -270,6 +281,81 @@ static double pf_now(void) {
 
 #define PF_CHUNK 64
 
+/* The ungapped rescoring profile of one query in the worker's buffer
+ * (ungapped_profile_cap): prof[j][a] = ung[q[j]][a] + round_half_away(
+ * bias[j] / 4), and *cap the u8 saturation cap; NULL when the buffer
+ * cannot grow. */
+static int32_t *pf_profile(pf_worker_t *w, const uint8_t *q, int64_t lq,
+                           const double *bias, int32_t *cap) {
+    pf_shared_t *sh = w->sh;
+    int32_t A = sh->A;
+    int32_t *prof = (int32_t *)buf_ensure(&w->prof, lq * A, sizeof(int32_t));
+    if (!prof)
+        return NULL;
+    int64_t corr_min = 0;
+    for (int64_t j = 0; j < lq; j++) {
+        int64_t corr = round_half_away(bias[j] / 4.0);
+        if (corr < corr_min) corr_min = corr;
+        const int32_t *row = sh->ung + (int64_t)q[j] * A;
+        int32_t *prow = prof + j * A;
+        for (int32_t a = 0; a < A; a++)
+            prow[a] = row[a] + (int32_t)corr;
+    }
+    *cap = 255 - (sh->sub_min_abs + (int32_t)(-corr_min));
+    return prof;
+}
+
+/* prefilter_finalize of query qi's match stream (dup filter, diagonal
+ * rescore, max_seqs selection); its hits are appended to the worker's
+ * buffers. Sets *sh->error on failure. */
+static void pf_finish(pf_worker_t *w, int64_t qi, const int32_t *st_t,
+                      const uint16_t *st_d, int64_t ns, const int32_t *prof,
+                      int64_t lq, const uint8_t *q, int32_t cap) {
+    pf_shared_t *sh = w->sh;
+    double pf_t2 = pf_now();
+    int64_t fin_cap = sh->max_seqs < sh->n_targets
+        ? sh->max_seqs : sh->n_targets;
+    int32_t *fin = (int32_t *)buf_ensure(&w->fin, fin_cap * 3,
+                                         sizeof(int32_t));
+    if (!fin) {
+        *sh->error = 1;
+        return;
+    }
+    int64_t nh = prefilter_finalize(
+        st_t, st_d, ns, sh->bin_bits,
+        sh->flat_masked, sh->t_starts, sh->n_targets,
+        prof, (int32_t)lq, sh->A, q, cap, sh->min_diag_score, sh->max_seqs,
+        fin, fin + fin_cap, fin + 2 * fin_cap);
+    if (nh < 0) {
+        *sh->error = 1;
+        return;
+    }
+    int32_t *h_t = (int32_t *)buf_ensure(&w->h_t, w->h_n + nh,
+                                         sizeof(int32_t));
+    int32_t *h_s = (int32_t *)buf_ensure(&w->h_s, w->h_n + nh,
+                                         sizeof(int32_t));
+    int32_t *h_d = (int32_t *)buf_ensure(&w->h_d, w->h_n + nh,
+                                         sizeof(int32_t));
+    /* an empty hit buffer legitimately stays NULL until the worker's
+     * first hit (buf_ensure(b, 0) never allocates) — only a FAILED
+     * grow is an error */
+    if (w->h_n + nh > 0 && (!h_t || !h_s || !h_d)) {
+        *sh->error = 1;
+        return;
+    }
+    if (nh == 0) {
+        sh->q_cnt[qi] = 0;
+        return;
+    }
+    memcpy(h_t + w->h_n, fin, sizeof(int32_t) * (size_t)nh);
+    memcpy(h_s + w->h_n, fin + fin_cap, sizeof(int32_t) * (size_t)nh);
+    memcpy(h_d + w->h_n, fin + 2 * fin_cap, sizeof(int32_t) * (size_t)nh);
+    sh->q_cnt[qi] = (int32_t)nh;
+    w->h_n += nh;
+    w->tm_fin += pf_now() - pf_t2;
+}
+
+
 static void pf_one_query(pf_worker_t *w, int64_t qi) {
     pf_shared_t *sh = w->sh;
     const uint8_t *q = sh->qflat + sh->qstarts[qi];
@@ -292,23 +378,12 @@ static void pf_one_query(pf_worker_t *w, int64_t qi) {
     else
         memset(bias, 0, sizeof(double) * (size_t)lq);
 
-    /* ungapped rescoring profile + u8 cap (ungapped_profile_cap) */
-    int32_t A = sh->A;
-    int32_t *prof = (int32_t *)buf_ensure(&w->prof, lq * A, sizeof(int32_t));
+    int32_t cap;
+    int32_t *prof = pf_profile(w, q, lq, bias, &cap);
     if (!prof) {
         *sh->error = 1;
         return;
     }
-    int64_t corr_min = 0;
-    for (int64_t j = 0; j < lq; j++) {
-        int64_t corr = round_half_away(bias[j] / 4.0);
-        if (corr < corr_min) corr_min = corr;
-        const int32_t *row = sh->ung + (int64_t)q[j] * A;
-        int32_t *prow = prof + j * A;
-        for (int32_t a = 0; a < A; a++)
-            prow[a] = row[a] + (int32_t)corr;
-    }
-    int32_t cap = 255 - (sh->sub_min_abs + (int32_t)(-corr_min));
     double pf_t1 = pf_now();
     w->tm_prof += pf_t1 - pf_t0;
 
@@ -415,49 +490,9 @@ static void pf_one_query(pf_worker_t *w, int64_t qi) {
     if (ns == 0)
         return;
 
-    double pf_t2 = pf_now();
-    w->tm_walk += pf_t2 - pf_t1;
+    w->tm_walk += pf_now() - pf_t1;
     w->n_stream += ns;
-    int64_t fin_cap = sh->max_seqs < sh->n_targets
-        ? sh->max_seqs : sh->n_targets;
-    int32_t *fin = (int32_t *)buf_ensure(&w->fin, fin_cap * 3,
-                                         sizeof(int32_t));
-    if (!fin) {
-        *sh->error = 1;
-        return;
-    }
-    int64_t nh = prefilter_finalize(
-        st_t, st_d, ns, sh->bin_bits,
-        sh->flat_masked, sh->t_starts, sh->n_targets,
-        prof, (int32_t)lq, A, q, cap, sh->min_diag_score, sh->max_seqs,
-        fin, fin + fin_cap, fin + 2 * fin_cap);
-    if (nh < 0) {
-        *sh->error = 1;
-        return;
-    }
-    int32_t *h_t = (int32_t *)buf_ensure(&w->h_t, w->h_n + nh,
-                                         sizeof(int32_t));
-    int32_t *h_s = (int32_t *)buf_ensure(&w->h_s, w->h_n + nh,
-                                         sizeof(int32_t));
-    int32_t *h_d = (int32_t *)buf_ensure(&w->h_d, w->h_n + nh,
-                                         sizeof(int32_t));
-    /* an empty hit buffer legitimately stays NULL until the worker's
-     * first hit (buf_ensure(b, 0) never allocates) — only a FAILED
-     * grow is an error */
-    if (w->h_n + nh > 0 && (!h_t || !h_s || !h_d)) {
-        *sh->error = 1;
-        return;
-    }
-    if (nh == 0) {
-        sh->q_cnt[qi] = 0;
-        return;
-    }
-    memcpy(h_t + w->h_n, fin, sizeof(int32_t) * (size_t)nh);
-    memcpy(h_s + w->h_n, fin + fin_cap, sizeof(int32_t) * (size_t)nh);
-    memcpy(h_d + w->h_n, fin + 2 * fin_cap, sizeof(int32_t) * (size_t)nh);
-    sh->q_cnt[qi] = (int32_t)nh;
-    w->h_n += nh;
-    w->tm_fin += pf_now() - pf_t2;
+    pf_finish(w, qi, st_t, st_d, ns, prof, lq, q, cap);
 }
 
 static void pf_worker_loop(pf_worker_t *w) {
@@ -492,7 +527,8 @@ static void *pf_worker_main(void *arg) {
     return NULL;
 }
 
-/* result staging between prefilter_batch and prefilter_batch_fetch */
+/* result staging between prefilter_batch (or prefilter_finalize_batch)
+ * and prefilter_batch_fetch */
 static struct {
     int32_t *t, *s, *d;
     int64_t *off;
@@ -503,6 +539,91 @@ void prefilter_batch_free(void) {
     free(g_pf_res.t); free(g_pf_res.s); free(g_pf_res.d);
     free(g_pf_res.off);
     memset(&g_pf_res, 0, sizeof(g_pf_res));
+}
+
+/* Runs fn on nw workers over sh (nw - 1 threads and the caller; a thread
+ * that cannot start leaves its share to the others, which take queries
+ * from one counter). */
+static void pf_run(pf_worker_t *workers, int nw, pf_shared_t *sh,
+                   void *(*fn)(void *)) {
+    memset(workers, 0, sizeof(pf_worker_t) * (size_t)nw);
+    pthread_t tids[MAXW];
+    int spawned = 0;
+    for (int w = 0; w < nw; w++) {
+        workers[w].sh = sh;
+        workers[w].wid = w;
+    }
+    for (int w = 1; w < nw; w++)
+        if (pthread_create(&tids[spawned], NULL, fn, &workers[w]) == 0)
+            spawned++;
+    fn(&workers[0]);
+    for (int t = 0; t < spawned; t++)
+        pthread_join(tids[t], NULL);
+}
+
+/* Stages every query's hits, in query order, from the workers' buffers
+ * for prefilter_batch_fetch; returns their number, or -1 when the
+ * staging cannot be allocated. */
+static int64_t pf_stage(pf_worker_t *workers, const pf_shared_t *sh) {
+    int64_t nq = sh->nq, total = 0;
+    g_pf_res.off = (int64_t *)malloc(sizeof(int64_t) * (size_t)(nq + 1));
+    if (!g_pf_res.off)
+        return -1;
+    for (int64_t qi = 0; qi < nq; qi++) {
+        g_pf_res.off[qi] = total;
+        total += sh->q_cnt[qi];
+    }
+    g_pf_res.off[nq] = total;
+    g_pf_res.t = (int32_t *)malloc(sizeof(int32_t) * (size_t)(total + 1));
+    g_pf_res.s = (int32_t *)malloc(sizeof(int32_t) * (size_t)(total + 1));
+    g_pf_res.d = (int32_t *)malloc(sizeof(int32_t) * (size_t)(total + 1));
+    if (!g_pf_res.t || !g_pf_res.s || !g_pf_res.d) {
+        prefilter_batch_free();
+        return -1;
+    }
+    for (int64_t qi = 0; qi < nq; qi++) {
+        int32_t n = sh->q_cnt[qi];
+        if (!n) continue;
+        pf_worker_t *w = &workers[sh->q_wid[qi]];
+        int64_t dst = g_pf_res.off[qi];
+        memcpy(g_pf_res.t + dst, (int32_t *)w->h_t.p + sh->q_woff[qi],
+               sizeof(int32_t) * (size_t)n);
+        memcpy(g_pf_res.s + dst, (int32_t *)w->h_s.p + sh->q_woff[qi],
+               sizeof(int32_t) * (size_t)n);
+        memcpy(g_pf_res.d + dst, (int32_t *)w->h_d.p + sh->q_woff[qi],
+               sizeof(int32_t) * (size_t)n);
+    }
+    g_pf_res.n = total;
+    g_pf_res.nq = nq;
+    return total;
+}
+
+static void pf_free_workers(pf_worker_t *workers, int nw) {
+    for (int w = 0; w < nw; w++) {
+        free(workers[w].h_t.p); free(workers[w].h_s.p);
+        free(workers[w].h_d.p);
+        free(workers[w].bias.p); free(workers[w].prof.p);
+        free(workers[w].aacorr.p);
+        free(workers[w].st_t.p); free(workers[w].st_d.p);
+        free(workers[w].fin.p);
+        free(workers[w].loc);
+    }
+}
+
+static void pf_print_stats(const char *what, pf_worker_t *workers, int nw,
+                           int64_t nq) {
+    double tp = 0, tw = 0, tf = 0;
+    int64_t nstream = 0;
+    for (int w = 0; w < nw; w++) {
+        tp += workers[w].tm_prof;
+        tw += workers[w].tm_walk;
+        tf += workers[w].tm_fin;
+        nstream += workers[w].n_stream;
+    }
+    fprintf(stderr,
+            "[pref-stats] %s nq=%lld stream=%lld "
+            "prof=%.1fs walk=%.1fs finalize=%.1fs (cpu-s summed)\n",
+            what, (long long)nq, (long long)nstream, tp, tw, tf);
 }
 
 /* Returns total hit count (>= 0) or -1 on failure. Results stay staged
@@ -562,77 +683,20 @@ int64_t prefilter_batch(
         flat_masked, t_starts, n_targets,
         ung, sub_min_abs, min_diag_score, max_seqs, bin_bits,
         q_cnt, q_woff, q_wid, &next_q, &error,
+        NULL, NULL, NULL, NULL,
     };
     int nw = n_workers(nq);
     pf_worker_t workers[MAXW];
-    memset(workers, 0, sizeof(workers));
-    pthread_t tids[MAXW];
-    int spawned = 0;
-    for (int w = 0; w < nw; w++) {
-        workers[w].sh = &sh;
-        workers[w].wid = w;
-    }
-    for (int w = 1; w < nw; w++)
-        if (pthread_create(&tids[w - 1], NULL, pf_worker_main,
-                           &workers[w]) == 0)
-            spawned++;
-    pf_worker_main(&workers[0]);
-    for (int t = 0; t < spawned; t++)
-        pthread_join(tids[t], NULL);
+    pf_run(workers, nw, &sh, pf_worker_main);
     free(c1_start);
     free(uniq_lo);
-    if (getenv("SPACEPHARER_PREF_STATS")) {
-        double tp = 0, tw = 0, tf = 0;
-        int64_t nstream = 0;
-        for (int w = 0; w < nw; w++) {
-            tp += workers[w].tm_prof;
-            tw += workers[w].tm_walk;
-            tf += workers[w].tm_fin;
-            nstream += workers[w].n_stream;
-        }
-        fprintf(stderr,
-                "[pref-stats] nq=%lld stream=%lld "
-                "prof=%.1fs walk=%.1fs finalize=%.1fs (cpu-s summed)\n",
-                (long long)nq, (long long)nstream, tp, tw, tf);
-    }
+    if (getenv("SPACEPHARER_PREF_STATS"))
+        pf_print_stats("walk", workers, nw, nq);
 
-    int64_t total = 0;
-    if (!error) {
-        g_pf_res.off = (int64_t *)malloc(sizeof(int64_t) * (size_t)(nq + 1));
-        for (int64_t qi = 0; qi < nq; qi++) {
-            g_pf_res.off[qi] = total;
-            total += q_cnt[qi];
-        }
-        g_pf_res.off[nq] = total;
-        g_pf_res.t = (int32_t *)malloc(sizeof(int32_t) * (size_t)(total + 1));
-        g_pf_res.s = (int32_t *)malloc(sizeof(int32_t) * (size_t)(total + 1));
-        g_pf_res.d = (int32_t *)malloc(sizeof(int32_t) * (size_t)(total + 1));
-        for (int64_t qi = 0; qi < nq; qi++) {
-            int32_t n = q_cnt[qi];
-            if (!n) continue;
-            pf_worker_t *w = &workers[q_wid[qi]];
-            int64_t dst = g_pf_res.off[qi];
-            memcpy(g_pf_res.t + dst, (int32_t *)w->h_t.p + q_woff[qi],
-                   sizeof(int32_t) * (size_t)n);
-            memcpy(g_pf_res.s + dst, (int32_t *)w->h_s.p + q_woff[qi],
-                   sizeof(int32_t) * (size_t)n);
-            memcpy(g_pf_res.d + dst, (int32_t *)w->h_d.p + q_woff[qi],
-                   sizeof(int32_t) * (size_t)n);
-        }
-        g_pf_res.n = total;
-        g_pf_res.nq = nq;
-    }
-    for (int w = 0; w < nw; w++) {
-        free(workers[w].h_t.p); free(workers[w].h_s.p);
-        free(workers[w].h_d.p);
-        free(workers[w].bias.p); free(workers[w].prof.p);
-        free(workers[w].aacorr.p);
-        free(workers[w].st_t.p); free(workers[w].st_d.p);
-        free(workers[w].fin.p);
-        free(workers[w].loc);
-    }
+    int64_t total = error ? -1 : pf_stage(workers, &sh);
+    pf_free_workers(workers, nw);
     free(q_cnt); free(q_woff); free(q_wid);
-    return error ? -1 : total;
+    return total;
 }
 
 /* copy staged results out and free them */
@@ -647,6 +711,132 @@ int64_t prefilter_batch_fetch(int32_t *out_t, int32_t *out_score,
     int64_t n = g_pf_res.n;
     prefilter_batch_free();
     return n;
+}
+
+/* ---- batched composition bias ----
+ *
+ * local_bias of every query of a flat batch (query qi's letters at
+ * qflat[qstarts[qi] .. qstarts[qi + 1] - 1], its bias at the same range
+ * of out), bit-identical to ops.bias.local_aa_bias; zeros when
+ * comp_bias_corr is off. The dense prefilter's thresholds and ungapped
+ * profiles read it (the host walk computes the same bias per query
+ * inside prefilter_batch). */
+void local_bias_batch(const uint8_t *qflat, const int64_t *qstarts,
+                      int64_t nq, const int32_t *seed, int32_t A,
+                      const double *expected_tab, int32_t comp_bias_corr,
+                      double *out) {
+    for (int64_t qi = 0; qi < nq; qi++) {
+        int64_t q0 = qstarts[qi], lq = qstarts[qi + 1] - q0;
+        if (comp_bias_corr)
+            local_bias(qflat + q0, lq, seed, A, expected_tab, out + q0);
+        else
+            memset(out + q0, 0, sizeof(double) * (size_t)lq);
+    }
+}
+
+/* ---- batched finalize of given match streams ----
+ *
+ * The dense prefilter (ops/prefilter_dense.py) rebuilds every query's
+ * match stream on the card, in the order the postings walk above would
+ * emit it; this finalizes all of them in one call, under the same worker
+ * pool: per query the ungapped rescoring profile and its cap (from the
+ * caller's composition bias, the one the dense pass's thresholds used)
+ * and prefilter_finalize. Query qi's stream is m_t / m_d[key_off[qi] ..
+ * key_off[qi + 1] - 1]; its letters are qflat[qstarts[qi] ..
+ * qstarts[qi + 1] - 1], their bias the same range of bias. Returns the
+ * total hit count (>= 0), staged for prefilter_batch_fetch, or -1 on
+ * failure. */
+static void fb_one_query(pf_worker_t *w, int64_t qi) {
+    pf_shared_t *sh = w->sh;
+    int64_t q0 = sh->qstarts[qi];
+    int64_t lq = sh->qstarts[qi + 1] - q0;
+    int64_t s0 = sh->key_off[qi];
+    int64_t ns = sh->key_off[qi + 1] - s0;
+    sh->q_cnt[qi] = 0;
+    sh->q_wid[qi] = (int8_t)w->wid;
+    sh->q_woff[qi] = w->h_n;
+    if (ns == 0)
+        return;
+    double t0 = pf_now();
+    int32_t cap;
+    int32_t *prof = pf_profile(w, sh->qflat + q0, lq, sh->bias + q0, &cap);
+    if (!prof) {
+        *sh->error = 1;
+        return;
+    }
+    w->tm_prof += pf_now() - t0;
+    w->n_stream += ns;
+    pf_finish(w, qi, sh->m_t + s0, sh->m_d + s0, ns, prof, lq,
+              sh->qflat + q0, cap);
+}
+
+static void *fb_worker_main(void *arg) {
+    pf_worker_t *w = (pf_worker_t *)arg;
+    pf_shared_t *sh = w->sh;
+    for (;;) {
+        int64_t q0 = __atomic_fetch_add(sh->next_q, PF_CHUNK,
+                                        __ATOMIC_RELAXED);
+        if (q0 >= sh->nq || *sh->error)
+            break;
+        int64_t q1 = q0 + PF_CHUNK < sh->nq ? q0 + PF_CHUNK : sh->nq;
+        for (int64_t qi = q0; qi < q1; qi++)
+            fb_one_query(w, qi);
+    }
+    prefilter_finalize_release();
+    return NULL;
+}
+
+int64_t prefilter_finalize_batch(
+    const int32_t *m_t, const uint16_t *m_d, const int64_t *key_off,
+    int64_t nq,
+    const uint8_t *qflat, const int64_t *qstarts, const double *bias,
+    const int32_t *ung, int32_t A, int32_t sub_min_abs,
+    const uint8_t *flat_masked, const int64_t *t_starts, int64_t n_targets,
+    int32_t min_diag_score, int32_t max_seqs, int32_t bin_bits) {
+    prefilter_batch_free();
+    if (nq < 0)
+        return -1;
+    int32_t *q_cnt = (int32_t *)malloc(sizeof(int32_t) * (size_t)(nq + 1));
+    int64_t *q_woff = (int64_t *)malloc(sizeof(int64_t) * (size_t)(nq + 1));
+    int8_t *q_wid = (int8_t *)malloc((size_t)(nq + 1));
+    if (!q_cnt || !q_woff || !q_wid) {
+        free(q_cnt); free(q_woff); free(q_wid);
+        return -1;
+    }
+    volatile int64_t next_q = 0;
+    volatile int error = 0;
+    pf_shared_t sh;
+    memset(&sh, 0, sizeof(sh));
+    sh.qflat = qflat;
+    sh.qstarts = qstarts;
+    sh.nq = nq;
+    sh.A = A;
+    sh.flat_masked = flat_masked;
+    sh.t_starts = t_starts;
+    sh.n_targets = n_targets;
+    sh.ung = ung;
+    sh.sub_min_abs = sub_min_abs;
+    sh.min_diag_score = min_diag_score;
+    sh.max_seqs = max_seqs;
+    sh.bin_bits = bin_bits;
+    sh.q_cnt = q_cnt;
+    sh.q_woff = q_woff;
+    sh.q_wid = q_wid;
+    sh.next_q = &next_q;
+    sh.error = &error;
+    sh.m_t = m_t;
+    sh.m_d = m_d;
+    sh.key_off = key_off;
+    sh.bias = bias;
+    int nw = n_workers(nq);
+    pf_worker_t workers[MAXW];
+    pf_run(workers, nw, &sh, fb_worker_main);
+    if (getenv("SPACEPHARER_PREF_STATS"))
+        pf_print_stats("finalize-batch", workers, nw, nq);
+    int64_t total = error ? -1 : pf_stage(workers, &sh);
+    pf_free_workers(workers, nw);
+    free(q_cnt); free(q_woff); free(q_wid);
+    return total;
 }
 
 /* ---- batched contig ORF scan (createsetdb hot path) ----

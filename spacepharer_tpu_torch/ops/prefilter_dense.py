@@ -23,11 +23,12 @@ A target position j matches query k-mer i iff
 
 The index's "one posting per (code, seq) at its first position"
 (IndexTable.h:341-) becomes a dedup over the hits, and the reference's
-exact match-stream order is rebuilt per hit from the enumerator's
-half-list ranks (hits_to_streams). The stream feeds the existing exact
-host finalize (dup filter, ungapped diagonal rescore, max_seqs
-selection), so the output is byte-identical to the host engine, and the
-device path needs no postings index: only the tantan-masked flat target.
+exact match-stream order is rebuilt per hit from the half-list ranks
+(rebuild_streams, on the card: csrc/prefilter_streams.cu). The streams
+feed the exact host finalize (dup filter, ungapped diagonal rescore,
+max_seqs selection; one threaded native call over every key), so the
+output is byte-identical to the host engine, and the device path needs
+no postings index: only the tantan-masked flat target.
 
 On the card two hand-written kernels (csrc/prefilter_dense.cu) do the
 dense work, both as an int8 tensor-core product over the rows that can
@@ -102,42 +103,45 @@ class QueryKmerBatch:
     n_rows: int             # NQ (k-mer start positions incl. invalid)
 
 
+def flat_keys(arrays, keys, dtype):
+    """(flat, starts): arrays[k] of every key in `keys`, concatenated as
+    `dtype`, and their int64 offsets [len(keys) + 1]."""
+    starts = np.zeros(len(keys) + 1, dtype=np.int64)
+    np.cumsum(np.fromiter((len(arrays[k]) for k in keys), np.int64,
+                          len(keys)), out=starts[1:])
+    if not starts[-1]:
+        return np.zeros(0, dtype=dtype), starts
+    return np.concatenate([arrays[k] for k in keys], dtype=dtype,
+                          casting="unsafe"), starts
+
+
 def build_query_batch(q_all, keys, bias80_all, params) -> QueryKmerBatch:
     """Pack the selected query ORFs into one flat k-mer batch.
 
     Validity/threshold semantics mirror prefilter_query: no X at the
     informative offsets, the last k-mer position of every ORF dropped
     (the indexTo quirk, CacheFriendlyOperations.cpp:43-46 +
-    QueryMatcher.cpp:289-293), thr_i = max(kmerThr - biasK_i, 0)."""
+    QueryMatcher.cpp:289-293), thr_i = max(kmerThr - biasK_i, 0). One
+    pass over the flat batch: row i of an ORF of length L is valid iff
+    i < L - span (its k-mer fits, and it is not the last one) and its
+    letters at the offsets are not X; its bias sum adds the offsets in
+    order, as the per-ORF sum did."""
     offsets = np.asarray(params.offsets)
     span = params.pattern_span
-    kmer_thr = params.kmer_threshold()
-    lens = [len(q_all[k]) for k in keys]
-    starts = np.zeros(len(keys) + 1, dtype=np.int64)
-    np.cumsum(lens, out=starts[1:])
+    q, starts = flat_keys(q_all, keys, np.uint8)
     nq = int(starts[-1])
     q_flat = np.full(nq + span - 1, X_IDX, dtype=np.uint8)
+    q_flat[:nq] = q
+    lens = np.diff(starts)
+    local = np.arange(nq) - np.repeat(starts[:-1], lens)
+    valid = local < np.repeat(lens - span, lens)
+    for off in offsets:
+        valid &= q_flat[off:off + nq] != X_IDX
+    kpos = np.flatnonzero(valid)
+    bias = flat_keys(bias80_all, keys, np.float64)[0]
+    kbias = round_half_away(bias[kpos[:, None] + offsets[None, :]].sum(axis=1))
     thr = np.full(nq, THR_INVALID, dtype=np.int32)
-    valid = np.zeros(nq, dtype=bool)
-    for ki, k in enumerate(keys):
-        q = np.asarray(q_all[k], dtype=np.int64)
-        L = len(q)
-        q_flat[starts[ki]:starts[ki] + L] = q
-        n_kmers = L - span + 1
-        if n_kmers <= 0:
-            continue
-        v = np.ones(n_kmers, dtype=bool)
-        for off in offsets:
-            v &= q[off:off + n_kmers] != X_IDX
-        v[n_kmers - 1] = False
-        kpos = np.flatnonzero(v)
-        if len(kpos) == 0:
-            continue
-        kbias = round_half_away(
-            np.asarray(bias80_all[k])[kpos[:, None]
-                                      + offsets[None, :]].sum(axis=1))
-        thr[starts[ki] + kpos] = np.maximum(kmer_thr - kbias, 0)
-        valid[starts[ki] + kpos] = True
+    thr[kpos] = np.maximum(params.kmer_threshold() - kbias, 0)
     return QueryKmerBatch(keys=list(keys), q_flat=q_flat, q_starts=starts,
                           kmer_thr=thr, kmer_valid=valid, span=span,
                           offsets=offsets, n_rows=nq)
@@ -598,7 +602,11 @@ def build_qexp_i8(batch: QueryKmerBatch, seed_scores: np.ndarray):
     if int(np.abs(seed_scores).max()) > 127:
         raise ValueError("the seed matrix exceeds the int8 range")
     R = max(-(-batch.n_rows // TILE_Q), 1) * TILE_Q
-    qexp = build_qexp(batch, seed_scores, R).astype(np.int8)
+    qexp = np.zeros((R, KDIM), dtype=np.int8)     # build_qexp's, as int8
+    s = seed_scores.astype(np.int8)
+    n = batch.n_rows
+    for p, off in enumerate(batch.offsets):
+        qexp[:n, p * 21:(p + 1) * 21] = s[batch.q_flat[off:off + n]]
     thr = np.full(R, THR_INVALID, dtype=np.int32)
     thr[:batch.n_rows] = batch.kmer_thr
     return qexp, thr
@@ -656,10 +664,13 @@ def hit_tiles(counts: torch.Tensor):
 def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
                 t_bval: np.ndarray, seed_scores: np.ndarray, kmer_thr: int,
                 device="cuda"):
-    """(gi, gj) int64 numpy: every query k-mer row gi of the batch and
-    target position gj with K >= thr_gi and a valid k-mer at gj, found
-    by the counts and emit passes on `device` (the kernels on a GPU, the
-    plain versions on the CPU). Hits come in no fixed order."""
+    """(gi int32, gj int64) tensors on `device`: every query k-mer row gi
+    of the batch and target position gj with K >= thr_gi and a valid
+    k-mer at gj, found by the counts and emit passes (the kernels on a
+    GPU, the plain versions on the CPU). Hits come in no fixed order and
+    stay on the device; no pad row or position past the target hits (their
+    thresholds and tval exclude them), and the stream rebuild drops any
+    that would."""
     dev = torch.device(device)
     t_flat = np.asarray(t_flat)
     t_res = len(t_flat)
@@ -693,135 +704,549 @@ def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
                 qexp, thr, letters, tval, offsets, tiles[lo:hi],
                 base[lo:hi] - start, tc[lo:hi],
                 int(ends_np[hi - 1]) - start, compacted)
-            gis.append(gi.cpu().numpy().astype(np.int64))
-            gjs.append(gj.cpu().numpy().astype(np.int64) + c0)
+            gis.append(gi)
+            gjs.append(gj.long() + c0)
             lo = hi
     if not gis:
-        return np.zeros(0, np.int64), np.zeros(0, np.int64)
-    gi = np.concatenate(gis)
-    gj = np.concatenate(gjs)
-    keep = (gi < batch.n_rows) & (gj < t_res)
-    return gi[keep], gj[keep]
+        return (torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros(0, dtype=torch.int64, device=dev))
+    if len(gis) == 1:
+        return gis[0], gjs[0]
+    return torch.cat(gis), torch.cat(gjs)
 
 
 # ---------------------------------------------------------------------------
-# reference-order stream reconstruction + finalize
+# reference-order match streams (csrc/prefilter_streams.cu) + finalize
 # ---------------------------------------------------------------------------
+#
+# The reference's postings walk emits a query's matches in a fixed order,
+# and the dup filter downstream depends on it: k-mer position ascending,
+# then KmerGenerator enumeration order, (half-1 rank, half-2 rank) under
+# each half list's (score desc, code asc) sort (KmerGenerator.cpp:186-),
+# then target sequence ascending; one entry per (code, seq) at its first
+# target position (IndexTable.h:341- unique-insert). The dense hits are
+# put in that order in four steps, each a kernel wrapper (a hand-written
+# kernel on CUDA tensors, its plain PyTorch version on CPU tensors):
+#
+#   stream_rank_tables  the rank of every target half-code under each
+#                       query half of the hit rows;
+#   stream_keys         each hit's sort key (row, rank 1, rank 2, target
+#                       sequence) and its position in the sequence;
+#   sort_keys           the sort (torch.sort, CUB's radix sort on a card);
+#   stream_runs         each run of one key kept at its least position:
+#                       the flat streams (m_t, m_d) and each query key's
+#                       first entry.
+#
+# The JAX package did this on the host with numpy (its hits_to_streams);
+# no TPU kernel computes it.
 
-# distinct query halves whose rank tables hits_to_streams gathers from
-# at once: 2,048 x 8,000 int16 = 32 MB
+N_QUERY_HALVES = (X_IDX + 1) ** 3   # base-21 codes of a query half, X in
+N_HALF = 20 ** 3                    # codes of a target half (letters < 20)
+# distinct query halves whose rank tables the plain version sorts at once
+# (2,048 x 8,000 int64 sort indices: 131 MB)
 RANK_CHUNK = 2048
-# bits of hits_to_streams' one sort key (row, rank 1, rank 2, target);
-# wider keys sort lexicographically instead
+# bits of the one sort key (row, rank 1, rank 2, target sequence); wider
+# keys sort in two stable passes (target sequence, then the rest)
 KEY_BITS = 63
 
+# wrapper calls that launched their kernels (the plain versions count in
+# none of them)
+ranks_launches = 0
+keys_launches = 0
+runs_launches = 0
+# None, or a list to which each stream wrapper's call appends (its name,
+# [(start, stop) CUDA events around each of its kernel launches])
+streams_events = None
 
-def _half_ranks(batch, gi, codes, enumerator):
-    """(r1, r2): for every hit, the rank of its target half-codes
-    `codes` (two [n] arrays) in the enumeration order of its query
-    row's two halves, from enumerator.half_rank's cached tables. Each
-    row's halves are coded once (letters in base 21, X included), and
-    the tables of the halves that occur are stacked RANK_CHUNK at a
-    time."""
-    half = enumerator.half
-    base = X_IDX + 1
-    rows = np.arange(batch.n_rows)
-    letters = batch.q_flat[rows[:, None] + np.asarray(batch.offsets)[None, :]]
-    hid = []
+
+def query_halves(q_flat, offsets, rows):
+    """(h1, h2) int64: the base-21 codes (X included) of the two query
+    halves, letters at offsets 0-2 and 3-5, of each row in `rows`."""
+    out = []
     for h in range(2):
-        code = np.zeros(batch.n_rows, dtype=np.int64)
-        for j in range(half):
-            code = code * base + letters[:, h * half + j]
-        hid.append(code[gi])
-    present = np.zeros(base ** half, dtype=bool)
-    present[hid[0]] = True
-    present[hid[1]] = True
-    uniq = np.flatnonzero(present)
-    slot = np.zeros(base ** half, dtype=np.int64)
-    slot[uniq] = np.arange(len(uniq))
-    tris = np.stack([uniq // base ** (half - 1 - j) % base
-                     for j in range(half)], axis=1)
-    ranks = [np.empty(len(gi), dtype=np.int64) for _ in range(2)]
-    sids = [slot[h] for h in hid]
-    for lo in range(0, len(uniq), RANK_CHUNK):
-        hi = min(lo + RANK_CHUNK, len(uniq))
-        tabs = np.stack([enumerator.half_rank(tri) for tri in tris[lo:hi]]
-                        ).astype(np.int16)
-        for sid, code, r in zip(sids, codes, ranks):
-            sel = (sid >= lo) & (sid < hi)
-            r[sel] = tabs[sid[sel] - lo, code[sel]]
-    return ranks
+        code = torch.zeros(rows.numel(), dtype=torch.int64,
+                           device=rows.device)
+        for p in range(3):
+            code = code * (X_IDX + 1) + q_flat[rows + offsets[3 * h + p]].long()
+        out.append(code)
+    return out
+
+
+def stream_rank_tables_plain(q_flat, offsets, gi, n_rows: int, seed):
+    """Plain PyTorch version of the rank-table kernels: (slot_of int32
+    [N_QUERY_HALVES], tables int16 [n_uniq, N_HALF]). The query halves
+    of the hit rows (gi < n_rows) are numbered in ascending code
+    (slot_of, -1 where absent); tables[slot_of[q], c] is the rank of
+    target half-code c under half q by (score desc, code asc), the score
+    S[q0][c0] + S[q1][c1] + S[q2][c2] of the seed matrix S (int32 [A,
+    A]). Built RANK_CHUNK halves at a time."""
+    dev = gi.device
+    rows = gi[(gi >= 0) & (gi < n_rows)].long()
+    present = torch.zeros(N_QUERY_HALVES, dtype=torch.bool, device=dev)
+    for code in query_halves(q_flat, offsets, rows):
+        present[code] = True
+    uniq = torch.nonzero(present).flatten()
+    slot_of = torch.full((N_QUERY_HALVES,), -1, dtype=torch.int32,
+                         device=dev)
+    slot_of[uniq] = torch.arange(uniq.numel(), dtype=torch.int32,
+                                 device=dev)
+    c = torch.arange(N_HALF, device=dev)
+    cols = (c // 400, c // 20 % 20, c % 20)
+    ranks = torch.arange(N_HALF, dtype=torch.int16, device=dev)
+    tables = torch.empty((uniq.numel(), N_HALF), dtype=torch.int16,
+                         device=dev)
+    base = X_IDX + 1
+    for lo in range(0, uniq.numel(), RANK_CHUNK):
+        u = uniq[lo:lo + RANK_CHUNK]
+        halves = (u // (base * base), u // base % base, u % base)
+        score = sum(seed[h][:, col] for h, col in zip(halves, cols))
+        order = torch.sort(-score, dim=1, stable=True).indices
+        tables[lo:lo + u.numel()].scatter_(1, order,
+                                           ranks.expand(u.numel(), -1))
+    return slot_of, tables
+
+
+def stream_keys_plain(gi, gj, q_flat, offsets, n_rows: int, t_flat,
+                      t_starts, slot_of, tables, seq_bits: int, narrow: bool):
+    """Plain PyTorch version of the key kernel: (key int64, tseq int32,
+    tpos int32, each [n]; bad int32 [1]). A kept hit (gi < n_rows, gj <
+    t_res) gets row_code = (gi * N_HALF + r1) * N_HALF + r2 from its
+    target half-codes' ranks, its target sequence and its position
+    there, and key = row_code << seq_bits | tseq when `narrow`, else
+    row_code; the others get key -1. bad counts kept hits whose k-mer
+    holds an X or runs past the target (they get key -1 too)."""
+    dev = gi.device
+    n = gi.numel()
+    key = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    tseq = torch.zeros(n, dtype=torch.int32, device=dev)
+    tpos = torch.zeros(n, dtype=torch.int32, device=dev)
+    g, j = gi.long(), gj.long()
+    t_res = t_flat.numel()
+    idx = torch.nonzero((g >= 0) & (g < n_rows) & (j >= 0)
+                        & (j < t_res)).flatten()
+    at = j[idx, None] + torch.tensor(offsets, device=dev)[None, :]
+    inside = at < t_res
+    letters = torch.where(inside, t_flat[at.clamp(max=max(t_res - 1, 0))]
+                          .long(), X_IDX)
+    ok = (letters < 20).all(dim=1)
+    bad = (~ok).sum().to(torch.int32).reshape(1)
+    idx, letters = idx[ok], letters[ok]
+    rows, jj = g[idx], j[idx]
+    c1 = letters[:, 0] * 400 + letters[:, 1] * 20 + letters[:, 2]
+    c2 = letters[:, 3] * 400 + letters[:, 4] * 20 + letters[:, 5]
+    h1, h2 = query_halves(q_flat, offsets, rows)
+    r1 = tables[slot_of[h1].long(), c1].long()
+    r2 = tables[slot_of[h2].long(), c2].long()
+    s = torch.searchsorted(t_starts, jj, right=True) - 1
+    row_code = (rows * N_HALF + r1) * N_HALF + r2
+    key[idx] = (row_code << seq_bits) | s if narrow else row_code
+    tseq[idx] = s.to(torch.int32)
+    tpos[idx] = (jj - t_starts[s]).to(torch.int32)
+    return key, tseq, tpos, bad
+
+
+def sort_keys(key, tseq, narrow: bool):
+    """int64 [n]: the permutation that orders the hits by (key, tseq),
+    kept hits (key >= 0) after the dropped ones: one sort of the packed
+    key when `narrow`, else a stable sort by tseq then a stable sort by
+    key. torch.sort (CUB's radix sort on a card)."""
+    if narrow:
+        return torch.sort(key, stable=True).indices
+    first = torch.sort(tseq, stable=True).indices
+    return first[torch.sort(key[first], stable=True).indices]
+
+
+def stream_runs_plain(perm, key, tseq, tpos, gi, q_starts, n_keys: int):
+    """Plain PyTorch version of the run kernels: (m_t int32, m_d uint16,
+    bounds int64 [n_keys + 1], n_runs int64 [1]). Over the hits in sorted
+    order (perm), each run of kept hits with one (key, tseq) gives one
+    stream entry: m_t = tseq and m_d = (gi - q_starts[query key of gi] -
+    least tpos of the run) & 0xFFFF; bounds[k] is query key k's first
+    entry (entries are in key order)."""
+    dev = perm.device
+    k, s = key[perm], tseq[perm]
+    kept = k >= 0
+    first = kept.clone()
+    first[1:] &= (k[1:] != k[:-1]) | (s[1:] != s[:-1])
+    n_runs = int(first.sum())
+    run = torch.cumsum(first, 0) - 1
+    pos = torch.full((n_runs,), 2 ** 31 - 1, dtype=torch.int32,
+                     device=dev).scatter_reduce(0, run[kept],
+                                                tpos[perm][kept], "amin")
+    head = perm[first]
+    g = gi[head].long()
+    of_key = torch.searchsorted(q_starts, g, right=True) - 1
+    m_d = ((g - q_starts[of_key] - pos) & 0xFFFF).to(torch.uint16)
+    bounds = torch.searchsorted(of_key, torch.arange(n_keys + 1, device=dev))
+    return (tseq[head], m_d, bounds,
+            torch.tensor([n_runs], dtype=torch.int64, device=dev))
+
+
+def _launch(name, dev, fn, *args):
+    """Run one C launch function on dev's current stream; raise on a CUDA
+    error. Returns the (start, stop) events around it when timing."""
+    events = None
+    stream = torch.cuda.current_stream(dev)
+    if streams_events is not None:
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        events[0].record(stream)
+    err = fn(*args, ctypes.c_void_p(stream.cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if events is not None:
+        events[1].record(stream)
+    return events
+
+
+def _streams_lib(name, dev, **tensors):
+    """The stream kernels' library, after checking that every named
+    tensor is a contiguous tensor on `dev` of the given dtype (tensors
+    maps a name to (tensor, dtype))."""
+    for what, (x, dtype) in tensors.items():
+        _check(f"{name} {what}", x, dtype, dev)
+    from ._cuda import library
+    return library("prefilter_streams")
+
+
+def stream_rank_tables(q_flat, offsets, gi, n_rows: int, seed):
+    """(slot_of int32 [N_QUERY_HALVES], tables int16 [n_uniq, N_HALF]):
+    the rank tables of the hit rows' query halves (stream_rank_tables_plain
+    says what they hold). q_flat uint8 [n_rows + span - 1], offsets the 6
+    spaced offsets, gi int32 [n], seed int32 [A, A] (|S| <= 127, A >= 21).
+
+    On CUDA tensors this launches csrc/prefilter_streams.cu's
+    mark_halves_kernel and slots_kernel, reads the number of halves, and
+    launches rank_tables_kernel (one warp per half); it raises if a kernel
+    cannot be built or launched. On CPU tensors it runs
+    stream_rank_tables_plain."""
+    global ranks_launches
+    dev = gi.device
+    if dev.type == "cpu":
+        return stream_rank_tables_plain(q_flat, offsets, gi, n_rows, seed)
+    if dev.type != "cuda":
+        raise ValueError(f"stream_rank_tables: unsupported device {dev}")
+    lib = _streams_lib("stream_rank_tables", dev, gi=(gi, torch.int32),
+                       q_flat=(q_flat, torch.uint8),
+                       seed=(seed, torch.int32))
+    if (seed.dim() != 2 or seed.shape[0] != seed.shape[1]
+            or seed.shape[0] <= X_IDX or int(seed.abs().max()) > 127):
+        raise ValueError("stream_rank_tables: the seed matrix must be "
+                         "square, at least 21 wide, within [-127, 127]")
+    present = torch.zeros(N_QUERY_HALVES, dtype=torch.int32, device=dev)
+    slot_of = torch.empty(N_QUERY_HALVES, dtype=torch.int32, device=dev)
+    uniq = torch.empty(N_QUERY_HALVES, dtype=torch.int32, device=dev)
+    n_uniq = torch.empty(1, dtype=torch.int32, device=dev)
+    ev = [_launch("stream_rank_tables", dev, lib.prefilter_streams_halves_launch,
+                  _ptr(gi), ctypes.c_longlong(gi.numel()),
+                  ctypes.c_longlong(n_rows), _ptr(q_flat),
+                  (ctypes.c_int * N_OFF)(*offsets), _ptr(present),
+                  _ptr(slot_of), _ptr(uniq), _ptr(n_uniq))]
+    n_u = int(n_uniq.item())
+    tables = torch.empty((n_u, N_HALF), dtype=torch.int16, device=dev)
+    ev.append(_launch("stream_rank_tables", dev,
+                      lib.prefilter_streams_tables_launch, _ptr(uniq),
+                      ctypes.c_int(n_u), _ptr(seed),
+                      ctypes.c_int(seed.shape[1]), _ptr(tables)))
+    if streams_events is not None:
+        streams_events.append(("ranks", ev))
+    ranks_launches += 1
+    return slot_of, tables
+
+
+def stream_keys(gi, gj, q_flat, offsets, n_rows: int, t_flat, t_starts,
+                slot_of, tables, seq_bits: int, narrow: bool):
+    """(key int64, tseq int32, tpos int32, each [n]; bad int32 [1]): each
+    hit's sort key, target sequence and position (stream_keys_plain says
+    how). gi int32 [n], gj int64 [n], q_flat uint8, t_flat uint8 [t_res],
+    t_starts int64 [n_seqs + 1], slot_of and tables from
+    stream_rank_tables.
+
+    On CUDA tensors this launches csrc/prefilter_streams.cu's keys_kernel
+    (one thread per hit) and raises if it cannot be built or launched; on
+    CPU tensors it runs stream_keys_plain."""
+    global keys_launches
+    dev = gi.device
+    if dev.type == "cpu":
+        return stream_keys_plain(gi, gj, q_flat, offsets, n_rows, t_flat,
+                                 t_starts, slot_of, tables, seq_bits, narrow)
+    if dev.type != "cuda":
+        raise ValueError(f"stream_keys: unsupported device {dev}")
+    lib = _streams_lib(
+        "stream_keys", dev, gi=(gi, torch.int32), gj=(gj, torch.int64),
+        q_flat=(q_flat, torch.uint8), t_flat=(t_flat, torch.uint8),
+        t_starts=(t_starts, torch.int64), slot_of=(slot_of, torch.int32),
+        tables=(tables, torch.int16))
+    n = gi.numel()
+    if gj.numel() != n or t_starts.numel() - 1 > 0x7fffffff:
+        raise ValueError("stream_keys: gi and gj must pair up, and the "
+                         "sequences must be countable in int32")
+    key = torch.empty(n, dtype=torch.int64, device=dev)
+    tseq = torch.empty(n, dtype=torch.int32, device=dev)
+    tpos = torch.empty(n, dtype=torch.int32, device=dev)
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    ev = _launch("stream_keys", dev, lib.prefilter_streams_keys_launch, _ptr(gi),
+                 _ptr(gj), ctypes.c_longlong(n), ctypes.c_longlong(n_rows),
+                 _ptr(q_flat), (ctypes.c_int * N_OFF)(*offsets),
+                 _ptr(t_flat), ctypes.c_longlong(t_flat.numel()),
+                 _ptr(t_starts), ctypes.c_int(t_starts.numel() - 1),
+                 _ptr(slot_of), _ptr(tables), ctypes.c_int(seq_bits),
+                 ctypes.c_int(int(narrow)), _ptr(key), _ptr(tseq),
+                 _ptr(tpos), _ptr(bad))
+    if streams_events is not None:
+        streams_events.append(("keys", [ev]))
+    keys_launches += 1
+    return key, tseq, tpos, bad
+
+
+def stream_runs(perm, key, tseq, tpos, gi, q_starts, n_keys: int):
+    """(m_t int32, m_d uint16, bounds int64 [n_keys + 1], n_runs int64
+    [1]): the stream entries of the sorted hits (stream_runs_plain says
+    what they hold); on a card m_t and m_d hold n entries, the first
+    n_runs written. perm int64 [n] from sort_keys, key/tseq/tpos from
+    stream_keys, gi int32 [n], q_starts int64 [n_keys + 1].
+
+    On CUDA tensors this launches csrc/prefilter_streams.cu's
+    run_count_kernel, scan_blocks_kernel, run_write_kernel and
+    key_bounds_kernel and raises if they cannot be built or launched; on
+    CPU tensors it runs stream_runs_plain."""
+    global runs_launches
+    dev = perm.device
+    if dev.type == "cpu":
+        return stream_runs_plain(perm, key, tseq, tpos, gi, q_starts, n_keys)
+    if dev.type != "cuda":
+        raise ValueError(f"stream_runs: unsupported device {dev}")
+    lib = _streams_lib(
+        "stream_runs", dev, perm=(perm, torch.int64), key=(key, torch.int64),
+        tseq=(tseq, torch.int32), tpos=(tpos, torch.int32),
+        gi=(gi, torch.int32), q_starts=(q_starts, torch.int64))
+    n = perm.numel()
+    if not (key.numel() == tseq.numel() == tpos.numel() == gi.numel() == n
+            and q_starts.numel() == n_keys + 1 and 0 < n_keys < 2 ** 31):
+        raise ValueError("stream_runs: one key, sequence, position and row "
+                         "per hit, and one start per query key and its end")
+    nb = max(-(-n // lib.prefilter_streams_block()), 1)
+    block_counts = torch.empty(nb, dtype=torch.int32, device=dev)
+    block_off = torch.empty(nb, dtype=torch.int64, device=dev)
+    m_t = torch.empty(n, dtype=torch.int32, device=dev)
+    m_d = torch.empty(n, dtype=torch.uint16, device=dev)
+    run_key = torch.empty(n, dtype=torch.int32, device=dev)
+    n_runs = torch.empty(1, dtype=torch.int64, device=dev)
+    bounds = torch.empty(n_keys + 1, dtype=torch.int64, device=dev)
+    ev = _launch("stream_runs", dev, lib.prefilter_streams_runs_launch,
+                 _ptr(perm), _ptr(key), _ptr(tseq), _ptr(tpos), _ptr(gi),
+                 ctypes.c_longlong(n), _ptr(q_starts), ctypes.c_int(n_keys),
+                 _ptr(block_counts), _ptr(block_off), _ptr(m_t), _ptr(m_d),
+                 _ptr(run_key), _ptr(n_runs), _ptr(bounds))
+    if streams_events is not None:
+        streams_events.append(("runs", [ev]))
+    runs_launches += 1
+    return m_t, m_d, bounds, n_runs
+
+
+def stream_inputs(batch: QueryKmerBatch, t_flat, t_starts, seed_scores,
+                  device):
+    """The stream wrappers' inputs from host data, on `device`: (q_flat,
+    offsets, t_flat, t_starts, seed, q_starts, seq_bits, narrow). narrow:
+    the packed key of any row of the batch fits KEY_BITS."""
+    dev = torch.device(device)
+    offsets = tuple(int(o) for o in batch.offsets)
+    if len(offsets) != N_OFF:
+        raise ValueError(f"the match streams take {N_OFF} offsets (two "
+                         f"halves of 3)")
+    n_seqs = len(t_starts) - 1
+    seq_bits = max(n_seqs - 1, 1).bit_length()
+    narrow = ((batch.n_rows * N_HALF * N_HALF - 1).bit_length() + seq_bits
+              <= KEY_BITS)
+
+    def put(x, dtype):     # a copy: the masked target may be read-only
+        return torch.from_numpy(np.array(x, dtype=dtype)).to(dev)
+
+    return (put(batch.q_flat, np.uint8), offsets, put(t_flat, np.uint8),
+            put(t_starts, np.int64), put(seed_scores, np.int32),
+            put(batch.q_starts, np.int64), seq_bits, narrow)
+
+
+def rebuild_streams(batch: QueryKmerBatch, gi, gj, t_flat, t_starts,
+                    seed_scores):
+    """(m_t int32, m_d uint16, key_offsets int64 [len(batch.keys) + 1])
+    numpy: the reference-order match streams of the batch's keys from its
+    dense hits gi (int32) and gj (int64), tensors on one device: the
+    kernels on a card, their plain versions on the CPU. Key k's stream
+    is m_t / m_d[key_offsets[k]:key_offsets[k + 1]]. One read-back: the
+    count of entries (and of unrankable hits: raises), then the arrays."""
+    n_keys = len(batch.keys)
+    if n_keys == 0:
+        return (np.zeros(0, np.int32), np.zeros(0, np.uint16),
+                np.zeros(1, np.int64))
+    q_flat, offsets, t, ts, seed, qs, seq_bits, narrow = stream_inputs(
+        batch, t_flat, t_starts, seed_scores, gi.device)
+    slot_of, tables = stream_rank_tables(q_flat, offsets, gi, batch.n_rows,
+                                         seed)
+    key, tseq, tpos, bad = stream_keys(gi, gj, q_flat, offsets, batch.n_rows,
+                                       t, ts, slot_of, tables, seq_bits,
+                                       narrow)
+    perm = sort_keys(key, tseq, narrow)
+    m_t, m_d, bounds, n_runs = stream_runs(perm, key, tseq, tpos, gi, qs,
+                                           n_keys)
+    n_bad, n = torch.cat([bad.long(), n_runs]).tolist()
+    if n_bad:
+        raise RuntimeError(f"rebuild_streams: {n_bad} hits whose k-mer holds "
+                           f"an X or runs past the target")
+    return m_t[:n].cpu().numpy(), m_d[:n].cpu().numpy(), bounds.cpu().numpy()
 
 
 def hits_to_streams(batch: QueryKmerBatch, gi, gj, t_flat, t_starts,
                     enumerator) -> dict:
-    """Map (gi, gj) pairs to per-query (m_t, m_d) match streams in the
-    reference's exact emission order: k-mer position ascending, then
-    KmerGenerator enumeration order — (half-1 rank, half-2 rank) under
-    each half-list's (score desc, code asc) sort (KmerGenerator.cpp:
-    186-) — then target sequence ascending; one entry per (code, seq)
-    at its first target position (IndexTable.h:341- unique-insert).
-
-    One sort over every hit of the batch: the query row gi orders keys
-    and k-mer positions at once, so (gi, rank 1, rank 2, target) is the
-    sort key; each run of one key keeps its first target position, and
-    the streams split by key."""
-    offsets = np.asarray(batch.offsets)
-    t_starts = np.asarray(t_starts, dtype=np.int64)
-    gi = np.asarray(gi, dtype=np.int64)
-    gj = np.asarray(gj, dtype=np.int64)
-    n_seqs = len(t_starts) - 1
-    seq_of = np.repeat(np.arange(n_seqs, dtype=np.int64), np.diff(t_starts))
-    t_seq = seq_of[gj]
-    t_pos = gj - t_starts[t_seq]
-    letters = t_flat[gj[:, None] + offsets[None, :]].astype(np.int64)
-    c1 = letters[:, 0] * 400 + letters[:, 1] * 20 + letters[:, 2]
-    c2 = letters[:, 3] * 400 + letters[:, 4] * 20 + letters[:, 5]
-    r1, r2 = _half_ranks(batch, gi, (c1, c2), enumerator)
-    n_half = enumerator.n_half
-    row_code = (gi * n_half + r1) * n_half + r2
-    seq_bits = max(n_seqs - 1, 1).bit_length()
-    if (int(row_code.max(initial=0)).bit_length() + seq_bits) <= KEY_BITS:
-        key = (row_code << seq_bits) | t_seq
-        srt = np.argsort(key)
-        key = key[srt]
-        first = np.ones(len(srt), dtype=bool)
-        first[1:] = key[1:] != key[:-1]
-        runs = np.flatnonzero(first)
-        pos = (np.minimum.reduceat(t_pos[srt], runs) if len(runs)
-               else t_pos[:0])
-        gi, m_t = gi[srt][runs], t_seq[srt][runs]
-    else:
-        srt = np.lexsort((t_pos, t_seq, row_code))
-        row_code, t_seq = row_code[srt], t_seq[srt]
-        first = np.ones(len(srt), dtype=bool)
-        first[1:] = ((row_code[1:] != row_code[:-1])
-                     | (t_seq[1:] != t_seq[:-1]))
-        gi, m_t, pos = gi[srt][first], t_seq[first], t_pos[srt][first]
-    q_starts = np.asarray(batch.q_starts)
-    key_of = np.searchsorted(q_starts, gi, side="right") - 1
-    m_d = (gi - q_starts[key_of] - pos) & 0xFFFF
-    bounds = np.searchsorted(key_of, np.arange(len(batch.keys) + 1))
-    return {k: (m_t[bounds[i]:bounds[i + 1]], m_d[bounds[i]:bounds[i + 1]])
+    """{key: (m_t, m_d)} int64 numpy: the (gi, gj) hits' match streams
+    per query key in the reference's exact emission order (the comment
+    above N_QUERY_HALVES), by the plain versions on the CPU from
+    enumerator's seed matrix: the JAX package's hits_to_streams."""
+    m_t, m_d, bounds = rebuild_streams(
+        batch, torch.from_numpy(np.asarray(gi, dtype=np.int32)),
+        torch.from_numpy(np.asarray(gj, dtype=np.int64)), t_flat,
+        t_starts, enumerator.s80)
+    return {k: (m_t[bounds[i]:bounds[i + 1]].astype(np.int64),
+                m_d[bounds[i]:bounds[i + 1]].astype(np.int64))
             for i, k in enumerate(batch.keys)}
 
 
-def device_prefilter(q_all, keys, bias80_all, t_flat_masked, t_starts,
-                     params, enumerator, seed_m, ungapped_m,
-                     device="cuda") -> dict:
-    """Full dense prefilter: {key: [PrefilterHit]} byte-identical to
-    prefilter_query (the match set/stream is exact; the dup filter,
-    diagonal rescore and max_seqs selection run in the existing host
-    finalize on the reconstructed stream). The dense pass runs on
-    `device`; everything returned is host data."""
-    from .prefilter import (TargetIndex, _finalize_native, _finalize_py,
-                            ungapped_profile_cap)
+def composition_bias(q_flat, q_starts, seed_m, comp_bias_corr: bool):
+    """float64 [len(q_flat)]: every query's local composition bias
+    (ops/bias.py::local_aa_bias, bit for bit; zeros when comp_bias_corr
+    is off), query i's at q_starts[i]:q_starts[i + 1], by one native call
+    (local_bias_batch), or by local_aa_bias_batch without the native
+    library."""
+    from .bias import expected_score_tab, local_aa_bias_batch
     from ..native import get_lib
+    if not comp_bias_corr:
+        return np.zeros(len(q_flat), dtype=np.float64)
+    lib = get_lib()
+    if lib is None:
+        rows = [q_flat[q_starts[i]:q_starts[i + 1]]
+                for i in range(len(q_starts) - 1)]
+        return np.concatenate([np.zeros(0)]
+                              + local_aa_bias_batch(rows, seed_m))
+    q8 = np.ascontiguousarray(q_flat, dtype=np.uint8)
+    qs = np.ascontiguousarray(q_starts, dtype=np.int64)
+    seed32 = np.ascontiguousarray(seed_m.scores, dtype=np.int32)
+    etab = np.ascontiguousarray(expected_score_tab(seed_m))
+    out = np.empty(len(q8), dtype=np.float64)
+    lib.local_bias_batch(q8.ctypes.data, qs.ctypes.data, len(qs) - 1,
+                         seed32.ctypes.data, seed32.shape[1],
+                         etab.ctypes.data, 1, out.ctypes.data)
+    return out
 
+
+def finalize_streams(m_t, m_d, key_off, q_flat, q_starts, bias, t_flat,
+                     t_starts, params, ungapped_m):
+    """(targets int32, scores int32, diagonals int32, offsets int64
+    [n_keys + 1]): the dup filter, ungapped diagonal rescore and max_seqs
+    selection of every key's match stream (key i's: m_t /
+    m_d[key_off[i]:key_off[i + 1]]; its letters and composition bias at
+    q_starts[i]:q_starts[i + 1] of q_flat and bias), in one threaded
+    native call (prefilter_finalize_batch). Raises if the native library
+    is missing or fails."""
+    from .prefilter import _bin_bits
+    from ..native import get_lib
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("finalize_streams: the native library is not "
+                           "available")
+    n_keys = len(key_off) - 1
+    q8 = np.ascontiguousarray(q_flat, dtype=np.uint8)
+    qs = np.ascontiguousarray(q_starts, dtype=np.int64)
+    bias = np.ascontiguousarray(bias, dtype=np.float64)
+    ung32 = np.ascontiguousarray(ungapped_m.scores, dtype=np.int32)
+    m_t = np.ascontiguousarray(m_t, dtype=np.int32)
+    m_d = np.ascontiguousarray(m_d, dtype=np.uint16)
+    key_off = np.ascontiguousarray(key_off, dtype=np.int64)
+    t_flat = np.ascontiguousarray(t_flat, dtype=np.uint8)
+    t_starts = np.ascontiguousarray(t_starts, dtype=np.int64)
+    n_targets = len(t_starts) - 1
+    total = lib.prefilter_finalize_batch(
+        m_t.ctypes.data, m_d.ctypes.data, key_off.ctypes.data, n_keys,
+        q8.ctypes.data, qs.ctypes.data, bias.ctypes.data,
+        ung32.ctypes.data, ung32.shape[1], abs(int(ung32.min())),
+        t_flat.ctypes.data, t_starts.ctypes.data, n_targets,
+        params.min_diag_score, params.max_seqs, _bin_bits(n_targets))
+    if total < 0:
+        lib.prefilter_batch_free()
+        raise RuntimeError("prefilter_finalize_batch failed")
+    out_t = np.empty(total + 1, dtype=np.int32)
+    out_s = np.empty(total + 1, dtype=np.int32)
+    out_d = np.empty(total + 1, dtype=np.int32)
+    out_off = np.empty(n_keys + 1, dtype=np.int64)
+    lib.prefilter_batch_fetch(out_t.ctypes.data, out_s.ctypes.data,
+                              out_d.ctypes.data, out_off.ctypes.data)
+    return out_t[:total], out_s[:total], out_d[:total], out_off
+
+
+def finalize_streams_plain(m_t, m_d, key_off, q_flat, q_starts, bias,
+                           t_flat, t_starts, params, ungapped_m):
+    """finalize_streams key by key in Python (prefilter._finalize_py), for
+    the CPU route where the native library is absent."""
+    from .prefilter import _finalize_py, ungapped_profile_cap
+    index = _MaskedTargets(np.asarray(t_flat), np.asarray(t_starts))
+    hits = []
+    for i in range(len(key_off) - 1):
+        lo, hi = int(key_off[i]), int(key_off[i + 1])
+        if lo == hi:
+            hits.append([])
+            continue
+        q0, q1 = int(q_starts[i]), int(q_starts[i + 1])
+        q_num = np.asarray(q_flat[q0:q1], dtype=np.int64)
+        profile, cap = ungapped_profile_cap(q_num, bias[q0:q1], ungapped_m)
+        hits.append(_finalize_py(m_t[lo:hi].astype(np.int64),
+                                 m_d[lo:hi].astype(np.int64), index,
+                                 profile, cap, params, q_num))
+    off = np.zeros(len(hits) + 1, dtype=np.int64)
+    np.cumsum([len(h) for h in hits], out=off[1:])
+    flat = [h for hl in hits for h in hl]
+    return (np.array([h.target for h in flat], dtype=np.int32),
+            np.array([h.score for h in flat], dtype=np.int32),
+            np.array([h.diagonal for h in flat], dtype=np.int32), off)
+
+
+class _MaskedTargets:
+    """What _finalize_py reads of a TargetIndex: the masked sequences
+    (views into the flat target) and their count."""
+
+    def __init__(self, flat, starts):
+        self.seqs_masked = [flat[starts[i]:starts[i + 1]]
+                            for i in range(len(starts) - 1)]
+        self.seq_lengths = np.diff(starts)
+
+
+def device_prefilter_arrays(q_all, keys, bias80_all, t_flat_masked,
+                            t_starts, params, seed_m, ungapped_m,
+                            device="cuda"):
+    """(targets int32, scores int32, diagonals int32, offsets int64
+    [len(keys) + 1]): the dense prefilter's hits of every key, the
+    contract of prefilter_query_batch(as_arrays=True) and byte-identical
+    to it. bias80_all[k] is key k's composition bias; None computes it
+    here in one native call (composition_bias). The dense pass and the
+    stream rebuild run on `device` (the kernels on a card, their plain
+    versions on the CPU); one read-back per key chunk brings the flat
+    streams to the host, and one threaded native call finalizes every
+    key. Without the native library only the CPU route runs, key by key
+    (finalize_streams_plain)."""
+    from ..native import get_lib
     t_flat_masked = np.ascontiguousarray(t_flat_masked, dtype=np.uint8)
     t_starts = np.asarray(t_starts, dtype=np.int64)
+    if get_lib() is None and torch.device(device).type != "cpu":
+        raise RuntimeError("the dense prefilter on a card needs the native "
+                           "library (its batch finalize)")
     t_bval = target_boundary_valid(t_starts, params.pattern_span)
     kmer_thr = params.kmer_threshold()
+    q_flat, q_starts = flat_keys(q_all, keys, np.uint8)
+    if bias80_all is None:
+        bias = composition_bias(q_flat, q_starts, seed_m,
+                                params.comp_bias_corr)
+        bias80_all = {k: bias[q_starts[i]:q_starts[i + 1]]
+                      for i, k in enumerate(keys)}
+    else:
+        bias = flat_keys(bias80_all, keys, np.float64)[0]
 
     # query-side chunking: keys stream through the card in groups of at
     # most MAX_Q_ROWS residues (card memory, see MAX_Q_ROWS); per-key
@@ -838,39 +1263,33 @@ def device_prefilter(q_all, keys, bias80_all, t_flat_masked, t_starts,
     if cur or not key_chunks:
         key_chunks.append(cur)
 
-    streams = {}
+    m_ts, m_ds, offs = [], [], [np.zeros(1, np.int64)]
     for kchunk in key_chunks:
         batch = build_query_batch(q_all, kchunk, bias80_all, params)
         gi, gj = match_pairs(batch, t_flat_masked, t_bval, seed_m.scores,
                              kmer_thr, device=device)
-        streams.update(hits_to_streams(batch, gi, gj, t_flat_masked,
-                                       t_starts, enumerator))
+        m_t, m_d, bounds = rebuild_streams(batch, gi, gj, t_flat_masked,
+                                           t_starts, seed_m.scores)
+        offs.append(bounds[1:] + offs[-1][-1])
+        m_ts.append(m_t)
+        m_ds.append(m_d)
+    finalize = finalize_streams if get_lib() is not None \
+        else finalize_streams_plain
+    return finalize(np.concatenate(m_ts), np.concatenate(m_ds),
+                    np.concatenate(offs), q_flat, q_starts, bias,
+                    t_flat_masked, t_starts, params, ungapped_m)
 
-    # finalize needs the masked sequences (rescoring) but no postings
-    n_seqs = len(t_starts) - 1
-    shim = TargetIndex(
-        seqs_masked=[t_flat_masked[t_starts[i]:t_starts[i + 1]]
-                     for i in range(n_seqs)],
-        seq_lengths=np.diff(t_starts),
-        post_seq=np.zeros(0, np.int32), post_pos=np.zeros(0, np.uint16),
-        uniq_codes=np.zeros(0, np.int64), uniq_start=np.zeros(1, np.int64),
-        uniq_letters=np.zeros((0, params.kmer_size), np.int8),
-        db_residues=int(t_starts[-1]),
-        flat_masked=t_flat_masked, masked_starts=t_starts)
-    lib = get_lib()
-    out = {}
-    for k in keys:
-        m_t, m_d = streams[k]
-        if len(m_t) == 0:
-            out[k] = []
-            continue
-        profile, cap = ungapped_profile_cap(
-            np.asarray(q_all[k], dtype=np.int64), bias80_all[k], ungapped_m)
-        q_num = np.asarray(q_all[k], dtype=np.int64)
-        if lib is not None:
-            out[k] = _finalize_native(lib, m_t, m_d, shim, profile, cap,
-                                      params, q_num)
-        else:
-            out[k] = _finalize_py(m_t, m_d, shim, profile, cap, params,
-                                  q_num)
-    return out
+
+def device_prefilter(q_all, keys, bias80_all, t_flat_masked, t_starts,
+                     params, enumerator, seed_m, ungapped_m,
+                     device="cuda") -> dict:
+    """{key: [PrefilterHit]} of device_prefilter_arrays, byte-identical to
+    prefilter_query, in the JAX package's signature (the rank tables come
+    from seed_m; enumerator is not read)."""
+    from .prefilter import PrefilterHit
+    t, s, d, off = device_prefilter_arrays(
+        q_all, keys, bias80_all, t_flat_masked, t_starts, params, seed_m,
+        ungapped_m, device=device)
+    return {k: [PrefilterHit(int(t[i]), int(s[i]), int(d[i]))
+                for i in range(off[n], off[n + 1])]
+            for n, k in enumerate(keys)}

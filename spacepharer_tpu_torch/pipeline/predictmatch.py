@@ -89,38 +89,43 @@ def _require_card(params, route: str):
         "CPU")
 
 
-# Dense-prefilter cost model, measured by chip_smoke.py phase 4 on an
-# NVIDIA H100 80GB HBM3 at a 700 W power limit: the fixed cost
-# of a dense run in a fresh process from an imported torch (CUDA
-# context, kernel library load, first launches; the one-time nvcc build
-# left out; phase 4(b): 0.714 s) ...
-_DENSE_FIXED_S = 0.714
-# ... the dense cells (query k-mers x target residues, as the gate
-# counts them) per second of the whole dense pass (prep, both kernels,
-# transfers) at the production shape of phase 4(b) (94,223 k-mers x
-# 6,919,175 residues in 0.479 s) ...
-_DENSE_CELLS_PER_S = 1.36178e12
-# ... and the dense route's host work (import torch, target masking,
-# match-stream rebuild, per-key finalize, batched alignment) per query
-# k-mer and per target residue, fitted in phase 4(d) so that the model's
-# dense less host seconds equals the measured difference of the two
-# routes' fresh-process walls at two shapes, given phase 3(b)'s host walk
-# terms below: the phase-3 corpus (94,223 k-mers: 17.188 s dense, 8.791 s
-# host) and its small query side (2,149 k-mers: 8.918 s dense, 2.927 s
-# host), both x 6,919,175 residues. Beyond those residues the model is an
-# extrapolation. Both terms exceed the host walk's own, so the gate
-# picks the host walk at every shape.
-_DENSE_HOST_S_PER_KMER = 5.09701e-5
-_DENSE_HOST_S_PER_RES = 8.28207e-7
+# Dense-prefilter cost model, measured by chip_smoke.py on an NVIDIA H100
+# 80GB HBM3 at a 700 W power limit, all terms (these and the host walk's
+# below) from one call: the dense cells (query k-mers x target residues,
+# as the gate counts them) per second of the whole dense pass (the query
+# side's int8 Qexp, prep, both kernels, transfers) at the production
+# shape of phase 4(b) (94,223 k-mers x 6,919,175 residues in 0.290 s) ...
+_DENSE_CELLS_PER_S = 2.25099e12
+# ... and, fitted in phase 4(d) by least squares (every term came out
+# non-negative) so that the model's dense less host seconds matches the
+# measured difference of the two routes' fresh-process walls at four
+# shapes, given the cell rate above and the host walk's terms below, the
+# dense route's fixed cost in a fresh process (import torch, the CUDA
+# context, the kernel libraries' load, first launches; the one-time nvcc
+# build left out) and its host work (target masking, query packing and
+# composition bias, the stream read-back, the batch finalize, the batched
+# alignment) per query k-mer and per target residue. The four shapes,
+# dense / host walls: the phase-3 corpus (94,223 k-mers x 6,919,175
+# residues: 9.756 / 6.006 s), its small query side (2,149 k-mers: 9.180 /
+# 3.357 s), its query side x10 (942,230 k-mers: 30.699 / 23.912 s) and
+# its query side against 3x the target genomes (20,746,310 residues:
+# 14.843 / 9.987 s); residuals -1.189, 1.072, 0.116, 0.0 s. The host
+# route won at all four, and the model picks it there. The per-residue
+# term is the least resolved (0 to 1.8e-7 s in the three calls that
+# fitted it), so the dense picks the model makes at targets far above
+# 2e7 residues (a few thousand k-mers against 3e8-5e8 residues) are
+# extrapolations.
+_DENSE_FIXED_S = 5.07807
+_DENSE_HOST_S_PER_KMER = 2.26421e-5
+_DENSE_HOST_S_PER_RES = 9.71868e-9
 
 # Host batch-walk cost model (native prefilter_batch), measured by
-# chip_smoke.py phase 3(b) on the host of an NVIDIA H100 80GB HBM3 (700 W
-# power limit), medians of three fresh processes: the postings build of
-# the phase-3 target (0.510, 0.499, 0.551 s for 6,919,175 residues; no
-# persisted index) and the walk of its 94,223 query k-mers (2.819, 2.693,
-# 2.976 s).
-_HOST_POSTINGS_S_PER_RES = 7.37629e-8
-_HOST_WALK_S_PER_KMER = 2.99165e-5
+# chip_smoke.py phase 3(b) in the same call, medians of three fresh
+# processes: the postings build of the phase-3 target (0.399, 0.398,
+# 0.438 s for 6,919,175 residues; no persisted index) and the walk of its
+# 94,223 query k-mers (2.231, 2.174, 2.232 s).
+_HOST_POSTINGS_S_PER_RES = 5.76178e-8
+_HOST_WALK_S_PER_KMER = 2.36748e-5
 
 
 def dense_prefilter_viable(nk_total: int, t_res: int, has_idx: bool) -> bool:
@@ -442,20 +447,25 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
 
     if two_phase or use_batch:
         if use_dev_pf:
-            from ..ops.prefilter_dense import device_prefilter
+            from ..ops.prefilter_dense import device_prefilter_arrays
             # the kernels on a card, their plain versions on the CPU when
-            # asked for; the hits come back as host data
+            # asked for; the composition bias in one native call (None),
+            # as the host walk computes it; the hits come back as host
+            # arrays, one run of them per _BATCH_CHUNK keys, as the batch
+            # prefilter's
             _require_card(params, "the dense prefilter "
                                   "(--prefilter-engine device)")
             device = params.device
             log(2, f"dense device prefilter ({device}): "
                    f"{nk_total} k-mers x {t_res} target residues")
-            hits_all = device_prefilter(
-                q_all, keys, _get_bias80(), masked[0], masked[1],
-                params.prefilter, enumerator, seed_m, ungapped_m,
-                device=device)
-            cand_chunks = _keyed_chunks(
-                keys, {k: [h.target for h in hits_all[k]] for k in keys})
+            ct, _, _, co = device_prefilter_arrays(
+                q_all, keys, None, masked[0], masked[1],
+                params.prefilter, seed_m, ungapped_m, device=device)
+            cand_chunks = []
+            for lo in range(0, len(keys), _BATCH_CHUNK):
+                hi = min(lo + _BATCH_CHUNK, len(keys))
+                cand_chunks.append((keys[lo:hi], ct[co[lo]:co[hi]],
+                                    co[lo:hi + 1] - co[lo]))
         elif use_batch:
             cand_chunks = _prefilter_batch_keys()
         else:

@@ -19,23 +19,26 @@ from spacepharer_tpu_torch.pipeline import predictmatch as pm
 
 
 @pytest.mark.parametrize("nk_total,t_res,has_idx,dense", [
-    # the two shapes chip_smoke.py phase 4(d) measured in fresh processes
-    # (fresh index), where the host route was the faster
+    # the four shapes chip_smoke.py phase 4(d) measured in fresh processes
+    # (fresh index), where the host route was the faster at each
     pytest.param(94_223, 6_919_175, False, False, id="phase3_corpus"),
     pytest.param(2_149, 6_919_175, False, False, id="phase3_small_side"),
+    pytest.param(942_230, 6_919_175, False, False, id="phase3_queries_x10"),
+    pytest.param(94_223, 20_746_310, False, False, id="phase3_targets_x3"),
     # a few spacer sets against a fresh half-gigabase target (the JAX
-    # package goes dense here): the dense route's host work per target
-    # residue exceeds the postings build's
-    pytest.param(2_000, 500_000_000, False, False, id="few_kmers_5e8"),
-    # x500-corpus shape (37M residues, fresh)
+    # package goes dense here too): the postings build the host route
+    # would pay outweighs the dense route's fixed cost (an extrapolation
+    # of the per-residue terms, PERF.md)
+    pytest.param(2_000, 500_000_000, False, True, id="few_kmers_5e8"),
+    # x500-corpus shape (37M residues, fresh): the fixed cost decides
     pytest.param(2_000, 50_000_000, False, False, id="few_kmers_5e7"),
-    # catalog query side (870k k-mers)
+    # catalog query side (870k k-mers): the dense product's seconds
     pytest.param(870_000, 7_400_000, False, False, id="catalog_queries"),
     # both sides of the TPU's 32k-row compile cap (the JAX package goes
-    # dense just below it); the card has no such cap, the host work
-    # decides
-    pytest.param((1 << 15) + 1, 3 * 10 ** 8, False, False, id="rows_2e15p1"),
-    pytest.param(1 << 15, 3 * 10 ** 8, False, False, id="rows_2e15"),
+    # dense just below it); the card has no such cap: both go dense on a
+    # fresh 3e8-residue target, whose postings build decides
+    pytest.param((1 << 15) + 1, 3 * 10 ** 8, False, True, id="rows_2e15p1"),
+    pytest.param(1 << 15, 3 * 10 ** 8, False, True, id="rows_2e15"),
     # a persisted index makes the host walk nearly free
     pytest.param(2_000, 500_000_000, True, False, id="persisted_index"),
     # huge dense products are cut off by estimated seconds

@@ -62,7 +62,12 @@ def _case(seed, mask=False, **kw):
 
 
 def pairs(gi, gj):
-    return sorted(zip(np.asarray(gi).tolist(), np.asarray(gj).tolist()))
+    """Sorted (gi, gj) pairs of hits given as arrays or tensors (on any
+    device)."""
+    def values(x):
+        return torch.as_tensor(x).cpu().tolist()
+
+    return sorted(zip(values(gi), values(gj)))
 
 
 @dataclass
