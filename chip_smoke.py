@@ -53,44 +53,47 @@ Phase 3  builds a real-size corpus from the golden bundle and --seed
          the target axis (phase 3's query side against GATE_TARGET_COPIES
          mutated copies of each golden genome) both engines' medians
          beside the lines' predictions for its candidate cells.
-Phase 4  the dense prefilter's kernels (counts and emit) and its
-         stream kernels (csrc/prefilter_streams.cu: rank tables, key
-         build, run reduction): (a) counts and emit against their plain
-         versions, exactly (the emit against the plain emit of all rows
-         and of the compacted rows, as a set per tile), on the `cuda`
-         cases of tests/test_torch_prefilter_dense.py, and match_pairs
-         with small chunk and emit bounds against the numpy oracle; the
-         stream kernels against their plain versions on those cases' own
-         hits and on the random hits of
+Phase 4  the dense prefilter's kernels (counts and emit) and its stream
+         kernels (csrc/prefilter_streams.cu: rank tables, key build, run
+         reduction): (a) counts and emit against their plain versions,
+         exactly (the emit against the plain emit of all rows and of the
+         compacted rows, as a set per tile), on the `cuda` cases of
+         tests/test_torch_prefilter_dense.py, and match_pairs with small
+         chunk and emit bounds against the numpy oracle; the stream
+         kernels against their plain versions on those cases' own hits
+         and on the random and seam cases of
          tests/test_torch_prefilter_streams.py (keys too wide for one
-         sort among them); (b) at the production shape (phase 3's query
-         k-mer rows x its whole masked target), exact and timed (each
-         kernel alone on the compacted rows, the emit also at other run
-         caps; the compaction and the emit's run starts apart; the
-         counts' wrapper with the compaction and the emit's with its run
-         starts and check), with each kernel's share of its bound,
-         torch._int_mm on the same compacted int8 product in column
-         blocks (the library yardstick; the port never calls it), two of
-         the auto gate's constants (the whole dense pass's cells per
-         second, and the fixed cost of a dense run in a fresh process),
-         and the three stream kernels on the dense pass's own hits,
-         exact against their plain versions on the card and each timed
-         alone (CUDA events) beside its bound in bytes, the sort
-         (torch.sort) timed apart; (c) `predictmatch` through the CLI on
-         phase 3's corpus (its own DB copy) with --prefilter-engine
-         device --use-tpu 0, in this process so that the launches are
-         counted, whose text must equal phase 3's host-engine text with
-         every dense and stream kernel launched, with where
-         device_prefilter's time goes (the dense pass, the query packing,
-         the stream rebuild with each kernel and the sort on the card,
-         the batch finalize, the rest) and the alignment; (d) the dense
-         and host routes in fresh processes, as a user runs them, at
-         four shapes (phase 3's corpus, its first SMALL_SETS spacer sets
-         against the same target, its query side GATE_BIG_COPIES times
-         over, and its query side against phase 3(b)'s target-axis
-         point), their texts equal, and the gate's fixed cost and
-         host-work terms fitted to the four walls' differences with
-         (b)'s cell rate and phase 3(b)'s host walk terms.
+         sort, a run across many blocks, every query half among them);
+         (b) at the production shape (phase 3's query k-mer rows x its
+         whole masked target), exact and timed (each kernel alone on the
+         compacted rows, the emit also at other run caps; the compaction
+         and the emit's run starts apart; the counts' wrapper with the
+         compaction and the emit's with its run starts and check), with
+         each kernel's share of its bound, torch._int_mm on the same
+         compacted int8 product in column blocks (the library yardstick;
+         the port never calls it), two of the auto gate's constants (the
+         whole dense pass's cells per second, and the fixed cost of a
+         dense run in a fresh process), and the three stream kernels on
+         the dense pass's own hits, exact against their plain versions
+         on the card and each timed alone (device time by
+         torch.profiler) beside its bound in bytes, the sort (torch.sort)
+         timed apart, and the rank
+         tables' library yardstick (torch.sort of every half's 8,000
+         scores); (c) `predictmatch` through the CLI on phase 3's corpus
+         (its own DB copy) with --prefilter-engine device --use-tpu 0,
+         in this process so that the launches are counted, whose text
+         must equal phase 3's host-engine text with every dense and
+         stream kernel launched, with where device_prefilter's time goes
+         (the dense pass, the query packing, the stream rebuild with
+         each kernel and the sort on the card, the batch finalize, the
+         rest) and the alignment; (d) the dense and host routes in fresh
+         processes, as a user runs them, at four shapes (phase 3's
+         corpus, its first SMALL_SETS spacer sets against the same
+         target, its query side GATE_BIG_COPIES times over, and its
+         query side against phase 3(b)'s target-axis point), their texts
+         equal, and the gate's fixed cost and host-work terms fitted to
+         the four walls' differences with (b)'s cell rate and phase
+         3(b)'s host walk terms.
 Phase 5  the device mesh (--shards) and its dense SW kernels B3 (one
          query) and B4 (a query batch), csrc/sw_dense.cu: (a) both against
          their plain versions, exactly, on the `cuda` cases of
@@ -192,6 +195,11 @@ KERNELS = {   # library name -> (source, the TPU kernel it replaces)
 STREAM_KERNELS = (("prefilter_streams_ranks", "ranks"),
                   ("prefilter_streams_keys", "keys"),
                   ("prefilter_streams_runs", "runs"))
+# the device work of each stream wrapper, by _kernel_split's names
+STREAM_FUNCTIONS = {"ranks": ("mark_halves_kernel", "slots_kernel",
+                              "rank_tables_kernel"),
+                    "keys": ("keys_kernel",),
+                    "runs": ("memset", "run_count_kernel", "run_write_kernel")}
 LAUNCHER = os.path.join(REPO, "bin", "spacepharer_torch")
 BLASTN_FIXTURES = ("fix", "fix2", "fix3")   # tests/blastn_fixtures.tar.gz
 EMIT_REPLACES = "spacepharer_tpu/ops/prefilter_dense.py:228"
@@ -1255,7 +1263,9 @@ def phase4_stream_cases():
     against their plain versions on the card, on the dense pass's own
     hits of every `cuda` case with six offsets and on the random hits of
     tests/test_torch_prefilter_streams.py (keys wider than the bit
-    budget, pad hits, no hits, repeated halves among them). Returns the
+    budget, pad hits, no hits, repeated halves among them) and on its seam
+    cases (a run across many blocks of the run kernels, every query half,
+    one half, heavy score ties, one hit, every hit dropped). Returns the
     largest difference."""
     import torch
     from spacepharer_tpu_torch.ops import prefilter_dense as pd
@@ -1286,6 +1296,17 @@ def phase4_stream_cases():
             print(f"phase4 streams random {name}: {len(gi)} hits; kernels "
                   f"vs plain max err {e}; launches {launched}")
             err = max(err, e)
+        for name in tests.SEAM_CASES:
+            pd.KEY_BITS = key_bits
+            batch, gi, gj, flat, starts, scores, pd.KEY_BITS = (
+                tests.seam_case(name))
+            e, launched = tests.card_streams_check(
+                batch, torch.from_numpy(gi.astype(np.int32)).cuda(),
+                torch.from_numpy(gj.astype(np.int64)).cuda(), flat, starts,
+                scores)
+            print(f"phase4 streams seam {name}: {len(gi)} hits; kernels vs "
+                  f"plain max err {e}; launches {launched}")
+            err = max(err, e)
     finally:
         pd.KEY_BITS = key_bits
     if err:
@@ -1293,38 +1314,18 @@ def phase4_stream_cases():
     return err
 
 
-def _streams_ms(name, fn, args, n=P4_KERNEL_CALLS):
-    """(mean ms of one stream wrapper's kernel launches alone over n calls
-    of fn(*args), by the CUDA events the wrapper records into
-    prefilter_dense.streams_events; last output). One warm-up call."""
-    import torch
-    from spacepharer_tpu_torch.ops import prefilter_dense as pd
-    fn(*args)
-    pd.streams_events = []
-    try:
-        for _ in range(n):
-            out = fn(*args)
-        torch.cuda.synchronize()
-        ms = sum(a.elapsed_time(b) for nm, ev in pd.streams_events
-                 for a, b in ev if nm == name)
-    finally:
-        pd.streams_events = None
-    return ms / n, out
-
-
-def _event_ms(fn, args, n=P4_KERNEL_CALLS):
-    """(mean ms of n calls of fn(*args) by CUDA events around them, last
-    output): for the sort, a library call. One warm-up call."""
-    import torch
-    fn(*args)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        out = fn(*args)
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / n, out
+def _device_ms(fn, args, names=None, n=P4_KERNEL_CALLS):
+    """(mean device ms per call of fn(*args), by torch.profiler over n
+    calls: the time of the kernels and memsets that _kernel_split names
+    `names`, or of all of them; last output). One warm-up call."""
+    outs = [fn(*args)]
+    split = _kernel_split(lambda: outs.extend(fn(*args) for _ in range(n)))
+    if names is not None and not all(k in split for k in names
+                                     if k.endswith("_kernel")):
+        raise AssertionError(f"phase4 streams: the profiler saw {sorted(split)}"
+                             f", not all of {names}")
+    ms = sum(v for k, v in split.items() if names is None or k in names)
+    return ms / n, outs[-1]
 
 
 def _max_diff(a, b):
@@ -1340,23 +1341,29 @@ def phase4_streams(batch, gi, gj, flat, starts, scores):
     """(b) continued: the stream kernels at the production shape, on the
     dense pass's own hits (gi, gj on the card), each against its plain
     version on the same card tensors (max error 0) and timed alone by
-    CUDA events, with the sort (torch.sort) timed apart and each kernel's
-    bound in bytes (each input read once, each output written once) at
-    HBM_BYTES_PER_S."""
+    torch.profiler (_device_ms: each wrapper's kernels' device time), with
+    the sort (torch.sort) timed apart, each kernel's bound in bytes (each
+    input that it reads read once, each output written once) at
+    HBM_BYTES_PER_S and the rank tables' library yardstick
+    (_rank_sort_ms)."""
     import torch
     from spacepharer_tpu_torch.ops import prefilter_dense as pd
     q_flat, offsets, t, ts, seed, qs, seq_bits, narrow = pd.stream_inputs(
         batch, flat, starts, scores, gi.device)
     n_keys = len(batch.keys)
-    r_ms, (slot_of, tables) = _streams_ms(
-        "ranks", pd.stream_rank_tables,
-        (q_flat, offsets, gi, batch.n_rows, seed))
+    r_ms, (slot_of, tables) = _device_ms(
+        pd.stream_rank_tables, (q_flat, offsets, gi, batch.n_rows, seed),
+        STREAM_FUNCTIONS["ranks"])
     key_args = (gi, gj, q_flat, offsets, batch.n_rows, t, ts, slot_of,
                 tables, seq_bits, narrow)
-    k_ms, keys = _streams_ms("keys", pd.stream_keys, key_args)
-    sort_ms, perm = _event_ms(pd.sort_keys, (keys[0], keys[1], narrow))
+    k_ms, keys = _device_ms(pd.stream_keys, key_args,
+                            STREAM_FUNCTIONS["keys"])
+    sort_ms, (perm, sorted_key) = _device_ms(pd.sort_keys,
+                                             (keys[0], keys[1], narrow))
     run_args = (perm, *keys[:3], gi, qs, n_keys)
-    u_ms, runs = _streams_ms("runs", pd.stream_runs, run_args)
+    u_ms, runs = _device_ms(pd.stream_runs,
+                            run_args + (sorted_key, seq_bits, narrow),
+                            STREAM_FUNCTIONS["runs"])
     plain, plain_ms = {}, {}
     for name, fn, args in (
             ("ranks", pd.stream_rank_tables_plain,
@@ -1377,19 +1384,29 @@ def phase4_streams(batch, gi, gj, flat, starts, scores):
                         + [_max_diff(runs[i], plain["runs"][i])
                            for i in (2, 3)])}
     n = gi.numel()
+    # the runs read the sorted keys, the order and the positions; the rows
+    # and sequences only when the keys do not carry them
     work = {"ranks": _nbytes(gi, q_flat, seed, slot_of, tables)
             + 2 * 4 * pd.N_QUERY_HALVES,            # flags, list of halves
             "keys": _nbytes(gi, gj, q_flat, t, ts, slot_of, tables, *keys),
-            "runs": _nbytes(*run_args[:-1]) + 6 * n_runs
+            "runs": _nbytes(sorted_key, perm, keys[2], qs)
+            + (0 if narrow else _nbytes(keys[1], gi)) + 6 * n_runs
             + _nbytes(runs[2], runs[3])}             # m_t, m_d; bounds
+    library = {"ranks": _rank_sort_ms(seed, slot_of), "keys": None,
+               "runs": None}
     out = {}
     for name, ms in (("ranks", r_ms), ("keys", k_ms), ("runs", u_ms)):
         bound, bound_by = _bound(work[name], 0, INT8_OPS_PER_S)
-        out[name] = (errs[name], ms, plain_ms[name], (bound, bound_by))
-        print(f"phase4 production streams {name}: kernel alone {ms:.4f} ms, "
+        out[name] = (errs[name], ms, plain_ms[name], (bound, bound_by),
+                     library[name])
+        lib = ("none" if library[name] is None else
+               f"{library[name]:.4f} ms (torch.sort of the [{tables.shape[0]}"
+               f", {pd.N_HALF}] half scores, stable, the sort alone)")
+        print(f"phase4 production streams {name}: device time {ms:.4f} ms "
+              f"(torch.profiler, {STREAM_FUNCTIONS[name]}), "
               f"bound {bound:.6g} ms ({bound_by}, {work[name]} bytes), share "
               f"{bound / ms:.4f}; plain on the card {plain_ms[name]:.3f} ms; "
-              f"max|kernel-plain| = {errs[name]}")
+              f"library {lib}; max|kernel-plain| = {errs[name]}")
     # one sort of the packed keys reads them and writes them and their
     # indices (two stable sorts and two gathers when they do not fit)
     sort_bytes = 24 * n
@@ -1403,6 +1420,50 @@ def phase4_streams(batch, gi, gj, flat, starts, scores):
     if any(errs.values()):
         raise AssertionError("phase4 production streams: kernel != plain")
     return out
+
+
+def _kernel_split(calls):
+    """{name: device ms} of what calls() runs on the card, by
+    torch.profiler (CUPTI): the port's own kernels by function name (those
+    in an anonymous namespace), torch.sort's radix sort as "sort",
+    memsets as "memset", PyTorch's other kernels as "other"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        calls()
+        torch.cuda.synchronize()
+    split = collections.Counter()
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        us = e.cuda_time_total if us is None else us
+        own = re.search(r"\(anonymous namespace\)::(\w+)\(", e.key)
+        if own and "at::" not in e.key:
+            split[own.group(1)] += us / 1e3
+        elif re.search(r"[Rr]adix", e.key):
+            split["sort"] += us / 1e3
+        elif e.key.startswith("Memset"):
+            split["memset"] += us / 1e3
+        elif us > 0 and re.search(r"[Kk]ernel", e.key):
+            split["other"] += us / 1e3
+    return split
+
+
+def _rank_sort_ms(seed, slot_of):
+    """Mean ms (CUDA events, one warm-up call) of the one PyTorch call that
+    orders every listed query half's 8,000 target half-codes: torch.sort
+    of the negated [n_uniq, 8000] score matrix along its rows, stable, the
+    sort alone (no score build, no scatter of the ranks). The rank tables'
+    library yardstick: the port never calls it."""
+    import torch
+    from spacepharer_tpu_torch.ops import prefilter_dense as pd
+    uniq = torch.nonzero(slot_of >= 0).flatten()
+    c = torch.arange(pd.N_HALF, device=seed.device)
+    base = pd.X_IDX + 1
+    halves = (uniq // (base * base), uniq // base % base, uniq % base)
+    neg = -sum(seed[h][:, col] for h, col in zip(
+        halves, (c // 400, c // 20 % 20, c % 20)))
+    ms, _ = _device_ms(lambda x: torch.sort(x, dim=1, stable=True), (neg,))
+    return ms
 
 
 def _chain(fn, inputs, rest, n):
@@ -1429,11 +1490,12 @@ def _chain(fn, inputs, rest, n):
     return start.elapsed_time(stop) / n, out
 
 
-def phase4_production(dev, p3):
-    """(b): phase 3's query k-mer rows (one chunk) x its whole masked
-    target, exact against plain (one plain call each) and timed; and two
-    of the gate's constants."""
-    import torch
+def production_dense_inputs(paths):
+    """(params, seed matrix, query ORFs, keys, batch, masked flat target,
+    its starts, boundary validity): phase 4(b)'s dense-pass inputs from
+    phase 3's DBs (paths: [query, targets, targets_rev]), the query ORFs
+    of the first key chunk (MAX_Q_ROWS residues, as the port chunks them)
+    against the whole masked target."""
     from spacepharer_tpu_torch.io.setdb import SetDB
     from spacepharer_tpu_torch.ops import prefilter_dense as pd
     from spacepharer_tpu_torch.ops.bias import local_aa_bias_batch
@@ -1443,7 +1505,7 @@ def phase4_production(dev, p3):
                                                      load_masked_flat)
     params = PrefilterParams()
     seed_m = load_matrix(params.seed_matrix, 8.0)
-    qdb = SetDB.load(p3["paths"]["host"][0])
+    qdb = SetDB.load(paths[0])
     qf, qo = qdb.orf_aa_encoded()
     q_all = [qf[qo[k]:qo[k + 1]] for k in range(qdb.n_orfs)]
     keys, rows = [], 0
@@ -1454,15 +1516,25 @@ def phase4_production(dev, p3):
         rows += len(q_all[k])
     batch = pd.build_query_batch(q_all, keys,
                                  local_aa_bias_batch(q_all, seed_m), params)
-    tpath = p3["paths"]["host"][1]
-    masked = load_masked_flat(tpath, params)
+    masked = load_masked_flat(paths[1], params)
     if masked is None:
-        tdb = SetDB.load(tpath)
+        tdb = SetDB.load(paths[1])
         tf, to = tdb.orf_aa_encoded()
         masked = build_masked_flat(None, params, packed=(tf, to))
     flat = np.ascontiguousarray(masked[0])
     starts = np.asarray(masked[1], dtype=np.int64)
-    bval = pd.target_boundary_valid(starts, batch.span)
+    return (params, seed_m, q_all, keys, batch, flat, starts,
+            pd.target_boundary_valid(starts, batch.span))
+
+
+def phase4_production(dev, p3):
+    """(b): phase 3's query k-mer rows (one chunk) x its whole masked
+    target, exact against plain (one plain call each) and timed; and two
+    of the gate's constants."""
+    import torch
+    from spacepharer_tpu_torch.ops import prefilter_dense as pd
+    params, seed_m, q_all, keys, batch, flat, starts, bval = (
+        production_dense_inputs(p3["paths"]["host"]))
     kmer_thr = params.kmer_threshold()
     inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores, kmer_thr, dev)
     cells = batch.n_rows * len(flat)
@@ -1629,8 +1701,9 @@ def phase4_predictmatch(p3, tmp):
     the stream kernels, whose launches are counted (every count set to 0
     just before). Prints where device_prefilter's time goes: the dense
     pass, the query packing, the stream rebuild (each kernel and the sort
-    on the card by CUDA events; the read-back and host work the rest of
-    it), the batch finalize and the rest."""
+    on the card by CUDA events around its launch, the host's launch
+    latency inside them; the read-back and host work the rest of it), the
+    batch finalize and the rest."""
     import torch
     from spacepharer_tpu_torch.logging import timings
     from spacepharer_tpu_torch.ops import align
@@ -1643,10 +1716,10 @@ def phase4_predictmatch(p3, tmp):
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         ev[0].record()
-        perm = sort_keys(*a)
+        out = sort_keys(*a)
         ev[1].record()
         sort_events.append(ev)
-        return perm
+        return out
 
     pd.counts_launches = pd.emit_launches = pd.cells = 0
     pd.ranks_launches = pd.keys_launches = pd.runs_launches = 0
@@ -2553,13 +2626,13 @@ def main():
                        "library_ms": p4["library_ms"][part]})
     ps_src, ps_replaces = KERNELS["prefilter_streams"]
     for name, part in STREAM_KERNELS:
-        err, ms, plain_ms, (bound, bound_by) = p4["streams"][part]
+        err, ms, plain_ms, (bound, bound_by), lib_ms = p4["streams"][part]
         report.append({"name": name, "route": "cuda", "source": ps_src,
                        "replaces": ps_replaces,
                        "launches": p4_launches[name],
                        "max_abs_err": max(stream_case_err, err), "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": bound_by, "library_ms": None})
+                       "bound_by": bound_by, "library_ms": lib_ms})
     for name, replaces, key, case_err, extra_err in (
             ("sw_dense_one_query", ONE_QUERY_REPLACES, "b3", p5_errs[0], 0),
             ("sw_dense_batch", sd_replaces, "b4", p5_errs[1],

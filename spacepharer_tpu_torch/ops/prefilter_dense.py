@@ -732,7 +732,8 @@ def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
 #                       query half of the hit rows;
 #   stream_keys         each hit's sort key (row, rank 1, rank 2, target
 #                       sequence) and its position in the sequence;
-#   sort_keys           the sort (torch.sort, CUB's radix sort on a card);
+#   sort_keys           the sort (torch.sort, CUB's radix sort on a card),
+#                       which returns the sorted keys beside the order;
 #   stream_runs         each run of one key kept at its least position:
 #                       the flat streams (m_t, m_d) and each query key's
 #                       first entry.
@@ -846,14 +847,17 @@ def stream_keys_plain(gi, gj, q_flat, offsets, n_rows: int, t_flat,
 
 
 def sort_keys(key, tseq, narrow: bool):
-    """int64 [n]: the permutation that orders the hits by (key, tseq),
-    kept hits (key >= 0) after the dropped ones: one sort of the packed
-    key when `narrow`, else a stable sort by tseq then a stable sort by
-    key. torch.sort (CUB's radix sort on a card)."""
+    """(perm int64 [n], sorted_key int64 [n]): the permutation that orders
+    the hits by (key, tseq), kept hits (key >= 0) after the dropped ones,
+    and the keys in that order (key[perm]): one sort of the packed key
+    when `narrow`, else a stable sort by tseq then a stable sort by key.
+    torch.sort (CUB's radix sort on a card)."""
     if narrow:
-        return torch.sort(key, stable=True).indices
+        sorted_key, perm = torch.sort(key, stable=True)
+        return perm, sorted_key
     first = torch.sort(tseq, stable=True).indices
-    return first[torch.sort(key[first], stable=True).indices]
+    sorted_key, second = torch.sort(key[first], stable=True)
+    return first[second], sorted_key
 
 
 def stream_runs_plain(perm, key, tseq, tpos, gi, q_starts, n_keys: int):
@@ -917,9 +921,9 @@ def stream_rank_tables(q_flat, offsets, gi, n_rows: int, seed):
 
     On CUDA tensors this launches csrc/prefilter_streams.cu's
     mark_halves_kernel and slots_kernel, reads the number of halves, and
-    launches rank_tables_kernel (one warp per half); it raises if a kernel
-    cannot be built or launched. On CPU tensors it runs
-    stream_rank_tables_plain."""
+    launches rank_tables_kernel (one block of 256 threads per half); it
+    raises if a kernel cannot be built or launched. On CPU tensors it
+    runs stream_rank_tables_plain."""
     global ranks_launches
     dev = gi.device
     if dev.type == "cpu":
@@ -933,7 +937,8 @@ def stream_rank_tables(q_flat, offsets, gi, n_rows: int, seed):
             or seed.shape[0] <= X_IDX or int(seed.abs().max()) > 127):
         raise ValueError("stream_rank_tables: the seed matrix must be "
                          "square, at least 21 wide, within [-127, 127]")
-    present = torch.zeros(N_QUERY_HALVES, dtype=torch.int32, device=dev)
+    present = torch.zeros(-(-N_QUERY_HALVES // 32), dtype=torch.int32,
+                          device=dev)                   # a bitmap
     slot_of = torch.empty(N_QUERY_HALVES, dtype=torch.int32, device=dev)
     uniq = torch.empty(N_QUERY_HALVES, dtype=torch.int32, device=dev)
     n_uniq = torch.empty(1, dtype=torch.int32, device=dev)
@@ -999,17 +1004,20 @@ def stream_keys(gi, gj, q_flat, offsets, n_rows: int, t_flat, t_starts,
     return key, tseq, tpos, bad
 
 
-def stream_runs(perm, key, tseq, tpos, gi, q_starts, n_keys: int):
+def stream_runs(perm, key, tseq, tpos, gi, q_starts, n_keys: int,
+                sorted_key, seq_bits: int, narrow: bool):
     """(m_t int32, m_d uint16, bounds int64 [n_keys + 1], n_runs int64
     [1]): the stream entries of the sorted hits (stream_runs_plain says
     what they hold); on a card m_t and m_d hold n entries, the first
-    n_runs written. perm int64 [n] from sort_keys, key/tseq/tpos from
-    stream_keys, gi int32 [n], q_starts int64 [n_keys + 1].
+    n_runs written. perm int64 [n] and sorted_key (key[perm]) from
+    sort_keys, key/tseq/tpos from stream_keys, gi int32 [n], q_starts
+    int64 [n_keys + 1]; seq_bits and narrow the keys' packing, as
+    stream_keys took it: packed keys give the kernels each hit's row and
+    sequence, else they read them through perm.
 
     On CUDA tensors this launches csrc/prefilter_streams.cu's
-    run_count_kernel, scan_blocks_kernel, run_write_kernel and
-    key_bounds_kernel and raises if they cannot be built or launched; on
-    CPU tensors it runs stream_runs_plain."""
+    run_count_kernel and run_write_kernel and raises if they cannot be
+    built or launched; on CPU tensors it runs stream_runs_plain."""
     global runs_launches
     dev = perm.device
     if dev.type == "cpu":
@@ -1018,26 +1026,29 @@ def stream_runs(perm, key, tseq, tpos, gi, q_starts, n_keys: int):
         raise ValueError(f"stream_runs: unsupported device {dev}")
     lib = _streams_lib(
         "stream_runs", dev, perm=(perm, torch.int64), key=(key, torch.int64),
-        tseq=(tseq, torch.int32), tpos=(tpos, torch.int32),
-        gi=(gi, torch.int32), q_starts=(q_starts, torch.int64))
+        sorted_key=(sorted_key, torch.int64), tseq=(tseq, torch.int32),
+        tpos=(tpos, torch.int32), gi=(gi, torch.int32),
+        q_starts=(q_starts, torch.int64))
     n = perm.numel()
-    if not (key.numel() == tseq.numel() == tpos.numel() == gi.numel() == n
-            and q_starts.numel() == n_keys + 1 and 0 < n_keys < 2 ** 31):
-        raise ValueError("stream_runs: one key, sequence, position and row "
-                         "per hit, and one start per query key and its end")
-    nb = max(-(-n // lib.prefilter_streams_block()), 1)
-    block_counts = torch.empty(nb, dtype=torch.int32, device=dev)
-    block_off = torch.empty(nb, dtype=torch.int64, device=dev)
+    if not (key.numel() == sorted_key.numel() == tseq.numel() == tpos.numel()
+            == gi.numel() == n and q_starts.numel() == n_keys + 1
+            and 0 < n_keys < 2 ** 31
+            and (not narrow or 0 <= seq_bits < KEY_BITS)):
+        raise ValueError("stream_runs: one key, sorted key, sequence, "
+                         "position and row per hit, one start per query "
+                         "key and its end, and a packing inside the key")
+    nb = max(-(-n // lib.prefilter_streams_run_tile()), 1)
+    block_off = torch.empty(nb + 1, dtype=torch.int64, device=dev)
     m_t = torch.empty(n, dtype=torch.int32, device=dev)
     m_d = torch.empty(n, dtype=torch.uint16, device=dev)
-    run_key = torch.empty(n, dtype=torch.int32, device=dev)
     n_runs = torch.empty(1, dtype=torch.int64, device=dev)
     bounds = torch.empty(n_keys + 1, dtype=torch.int64, device=dev)
     ev = _launch("stream_runs", dev, lib.prefilter_streams_runs_launch,
-                 _ptr(perm), _ptr(key), _ptr(tseq), _ptr(tpos), _ptr(gi),
-                 ctypes.c_longlong(n), _ptr(q_starts), ctypes.c_int(n_keys),
-                 _ptr(block_counts), _ptr(block_off), _ptr(m_t), _ptr(m_d),
-                 _ptr(run_key), _ptr(n_runs), _ptr(bounds))
+                 _ptr(sorted_key), _ptr(perm), _ptr(tseq), _ptr(tpos),
+                 _ptr(gi), ctypes.c_longlong(n),
+                 ctypes.c_int(seq_bits if narrow else -1),
+                 _ptr(q_starts), ctypes.c_int(n_keys), _ptr(block_off),
+                 _ptr(m_t), _ptr(m_d), _ptr(n_runs), _ptr(bounds))
     if streams_events is not None:
         streams_events.append(("runs", [ev]))
     runs_launches += 1
@@ -1086,9 +1097,10 @@ def rebuild_streams(batch: QueryKmerBatch, gi, gj, t_flat, t_starts,
     key, tseq, tpos, bad = stream_keys(gi, gj, q_flat, offsets, batch.n_rows,
                                        t, ts, slot_of, tables, seq_bits,
                                        narrow)
-    perm = sort_keys(key, tseq, narrow)
+    perm, sorted_key = sort_keys(key, tseq, narrow)
     m_t, m_d, bounds, n_runs = stream_runs(perm, key, tseq, tpos, gi, qs,
-                                           n_keys)
+                                           n_keys, sorted_key, seq_bits,
+                                           narrow)
     n_bad, n = torch.cat([bad.long(), n_runs]).tolist()
     if n_bad:
         raise RuntimeError(f"rebuild_streams: {n_bad} hits whose k-mer holds "

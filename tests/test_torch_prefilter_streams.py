@@ -101,6 +101,70 @@ def assert_same_streams(got, want):
     np.testing.assert_array_equal(off, want[2])
 
 
+def seam_case(name):
+    """(batch, gi int64, gj int64, flat, starts, seed scores, KEY_BITS) of
+    an input aimed at a seam of the stream kernels:
+
+    long_run       one (row, code, sequence) hit 10,000 times at random
+                   positions of a one-letter target (a run across many
+                   4,096-hit blocks of the run kernels, and across their
+                   threads), among random hits;
+    long_run_wide  the same with keys too wide to pack (two sorts);
+    all_halves     one query per base-21 code h whose two halves are h
+                   and 9,260 - h: every one of the 9,261 query halves;
+    one_half       hits on one row of a one-letter query: one half;
+    heavy_ties     rows over two letters and a seed matrix of two values,
+                   -127 and 127 (scores tie heavily, at the range's ends);
+    single_hit     one hit;
+    all_dropped    hits on pad rows and past the target only."""
+    rng = np.random.default_rng(23)
+    key_bits = 0 if name == "long_run_wide" else pd.KEY_BITS
+    scores = load_matrix(PrefilterParams().seed_matrix, 8.0).scores
+    if name in ("long_run", "long_run_wide"):
+        batch, gi, gj, flat, starts, _ = stream_case(5, n_hits=2000)
+        run_seq = np.full(5000, 3, dtype=np.uint8)
+        pos = starts[-1] + rng.integers(0, len(run_seq) - batch.span, 10000)
+        flat = np.concatenate([flat, run_seq])
+        starts = np.append(starts, len(flat))
+        gi = np.concatenate([gi, np.full(len(pos), gi[0])])
+        gj = np.concatenate([gj, pos])
+        perm = rng.permutation(len(gi))
+        return batch, gi[perm], gj[perm], flat, starts, scores, key_bits
+    if name == "all_halves":
+        params = PrefilterParams()
+        offs = np.asarray(params.offsets)
+        q_all = []
+        for h in range(pd.N_QUERY_HALVES):
+            q = rng.integers(0, 21, params.pattern_span + 1)
+            for code, at in ((h, offs[:3]), (pd.N_QUERY_HALVES - 1 - h,
+                                              offs[3:])):
+                q[at] = (code // 441, code // 21 % 21, code % 21)
+            q_all.append(q.astype(np.int64))
+        batch = pd.build_query_batch(q_all, list(range(len(q_all))),
+                                     [np.zeros(len(q)) for q in q_all],
+                                     params)
+        _, _, _, flat, starts, _ = stream_case(5, n_hits=0)
+        gi = batch.q_starts[:-1]
+        gj = rng.integers(0, len(flat) - batch.span, len(gi))
+        return batch, gi, gj, flat, starts, scores, key_bits
+    kw = {"one_half": dict(n_queries=1, alphabet=1),
+          "heavy_ties": dict(alphabet=2, n_queries=20),
+          "single_hit": dict(n_hits=1),
+          "all_dropped": dict(n_hits=0, pad_hits=200)}[name]
+    batch, gi, gj, flat, starts, _ = stream_case(9, **kw)
+    if name == "one_half":
+        gi = np.zeros_like(gi)
+    if name == "heavy_ties":
+        scores = rng.choice(np.array([-127, 127], dtype=np.int32), (21, 21))
+    if name == "single_hit":
+        gi, gj = gi[:1], gj[:1]
+    return batch, gi, gj, flat, starts, scores, key_bits
+
+
+SEAM_CASES = ["long_run", "long_run_wide", "all_halves", "one_half",
+              "heavy_ties", "single_hit", "all_dropped"]
+
+
 # ------------------------------------------------------------ the rebuild
 
 @pytest.mark.parametrize("seed", range(5))
@@ -141,6 +205,85 @@ def test_plain_rebuild_edges(case, monkeypatch):
         assert list(np.flatnonzero(np.diff(got[2]))) == [1, 4, 5, 9]
     if case == "no_hits":
         assert len(got[0]) == 0 and not got[2].any()
+
+
+@pytest.mark.parametrize("case", SEAM_CASES)
+def test_plain_rebuild_seams_match_jax(case, monkeypatch):
+    """The plain rebuild of each seam case against the JAX package's
+    hits_to_streams, and what the case is built to hold: the long run is
+    one entry at its least position, all or one query half present, one
+    entry, none."""
+    batch, gi, gj, flat, starts, scores, key_bits = seam_case(case)
+    monkeypatch.setattr(pd, "KEY_BITS", key_bits)
+    q_flat, offsets, _, _, seed, _, _, narrow = pd.stream_inputs(
+        batch, flat, starts, scores, "cpu")
+    assert narrow == (case != "long_run_wide")
+    got = plain_rebuild(batch, gi, gj, flat, starts, scores)
+    assert_same_streams(got, jax_streams(batch, gi, gj, flat, starts,
+                                         scores))
+    _, tables = pd.stream_rank_tables_plain(
+        q_flat, offsets, torch.from_numpy(gi.astype(np.int32)), batch.n_rows,
+        seed)
+    m_t, m_d, off = got
+    if case.startswith("long_run"):
+        run_seq = len(starts) - 2
+        on_run = gj >= starts[run_seq]
+        assert on_run.sum() == 10000 and (m_t == run_seq).sum() == 1
+        row = int(gi[on_run][0])
+        ki = int(np.searchsorted(batch.q_starts, row, side="right")) - 1
+        least = int(gj[on_run].min() - starts[run_seq])
+        assert m_d[m_t == run_seq][0] == (row - batch.q_starts[ki]
+                                          - least) & 0xFFFF
+    if case in ("all_halves", "one_half"):
+        assert tables.shape[0] == (pd.N_QUERY_HALVES if case == "all_halves"
+                                   else 1)
+    if case in ("single_hit", "all_dropped"):
+        assert len(m_t) == (case == "single_hit") and off[-1] == len(m_t)
+
+
+@pytest.mark.parametrize("case", ["all_halves", "heavy_ties"])
+def test_plain_rank_tables_seams_match_half_rank(case):
+    """Every query half's plain rank table against the JAX package's
+    SimilarKmerEnumerator.half_rank: all 9,261 halves, and halves under a
+    seed matrix whose scores tie heavily."""
+    from spacepharer_tpu.ops.prefilter import SimilarKmerEnumerator
+    batch, gi, _, flat, starts, scores, _ = seam_case(case)
+    q_flat, offsets, _, _, seed, _, _, _ = pd.stream_inputs(
+        batch, flat, starts, scores, "cpu")
+    slot_of, tables = pd.stream_rank_tables_plain(
+        q_flat, offsets, torch.from_numpy(gi.astype(np.int32)), batch.n_rows,
+        seed)
+    uniq = np.flatnonzero(slot_of.numpy() >= 0)
+    if case == "all_halves":
+        assert len(uniq) == pd.N_QUERY_HALVES
+    enum = SimilarKmerEnumerator(scores)
+    for code in uniq:
+        tri = np.array([code // 441, code // 21 % 21, code % 21])
+        np.testing.assert_array_equal(tables[slot_of[code]].numpy(),
+                                      enum.half_rank(tri))
+
+
+@pytest.mark.parametrize("narrow", [True, False])
+def test_sort_keys_returns_the_sorted_keys(narrow, monkeypatch):
+    """sort_keys' second output is the keys in its order, key[perm], and
+    that order sorts (key, tseq), dropped hits first: packed keys and
+    keys sorted in two passes."""
+    if not narrow:
+        monkeypatch.setattr(pd, "KEY_BITS", 0)
+    batch, gi, gj, flat, starts, seed_m = stream_case(2, pad_hits=100)
+    q_flat, offsets, t, ts, seed, _, seq_bits, is_narrow = pd.stream_inputs(
+        batch, flat, starts, seed_m.scores, "cpu")
+    assert is_narrow == narrow
+    gi_t = torch.from_numpy(gi.astype(np.int32))
+    slot_of, tables = pd.stream_rank_tables(q_flat, offsets, gi_t,
+                                            batch.n_rows, seed)
+    key, tseq, _, _ = pd.stream_keys(
+        gi_t, torch.from_numpy(gj.astype(np.int64)), q_flat, offsets,
+        batch.n_rows, t, ts, slot_of, tables, seq_bits, narrow)
+    perm, sorted_key = pd.sort_keys(key, tseq, narrow)
+    assert torch.equal(sorted_key, key[perm])
+    pairs = list(zip(sorted_key.tolist(), tseq[perm].tolist()))
+    assert pairs == sorted(pairs) and pairs[0][0] == -1
 
 
 def test_rebuild_refuses_unrankable_hits():
@@ -398,8 +541,9 @@ def card_streams_check(batch, gi, gj, flat, starts, scores):
     plain = pd.stream_keys_plain(gi, gj, q_flat, offsets, batch.n_rows, t,
                                  ts, slot_of, tables, seq_bits, narrow)
     err += sum(int((a != b).sum()) for a, b in zip(keys, plain))
-    perm = pd.sort_keys(keys[0], keys[1], narrow)
-    runs = pd.stream_runs(perm, *keys[:3], gi, qs, len(batch.keys))
+    perm, sorted_key = pd.sort_keys(keys[0], keys[1], narrow)
+    runs = pd.stream_runs(perm, *keys[:3], gi, qs, len(batch.keys),
+                          sorted_key, seq_bits, narrow)
     p_runs = pd.stream_runs_plain(perm, *keys[:3], gi, qs, len(batch.keys))
     n = int(p_runs[3])
     err += int(runs[3] != p_runs[3]) + int((runs[2] != p_runs[2]).sum())
@@ -432,6 +576,22 @@ def test_cuda_stream_kernels_match_plain_random(case, monkeypatch):
         batch, torch.from_numpy(gi.astype(np.int32)).cuda(),
         torch.from_numpy(gj.astype(np.int64)).cuda(), flat, starts,
         seed_m.scores)
+    assert err == 0
+    assert launched == (2, 2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SEAM_CASES)
+def test_cuda_stream_kernels_match_plain_seams(case, monkeypatch):
+    """The stream kernels against their plain versions on the inputs
+    aimed at the redesigned kernels' seams (seam_case)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    batch, gi, gj, flat, starts, scores, key_bits = seam_case(case)
+    monkeypatch.setattr(pd, "KEY_BITS", key_bits)
+    err, launched = card_streams_check(
+        batch, torch.from_numpy(gi.astype(np.int32)).cuda(),
+        torch.from_numpy(gj.astype(np.int64)).cuda(), flat, starts, scores)
     assert err == 0
     assert launched == (2, 2, 2)
 
