@@ -12,7 +12,8 @@ Phase 0  requires CUDA, prints the card (nvidia-smi) and builds the
          per kernel function, the DPX min/max opcodes of sw_allpairs and
          sw_dense, the float64 opcodes of pair_profile, the integer MMA
          opcodes of prefilter_dense and the warp match and vote opcodes of
-         prefilter_streams; it fails if the emit kernel has no IMMA.
+         prefilter_streams; it fails if the emit kernel has no IMMA or
+         the profile kernel has a DFMA.
 Phase 1  holds B1's dense entry against its plain PyTorch version on the
          card, exactly, on the test corpora and on a production-shaped
          workload (the golden bundle's 305 query ORFs x 691 target ORFs,
@@ -38,9 +39,12 @@ Phase 3  builds a real-size corpus from the golden bundle and --seed
          and the torch probe's wait. Every query profile the profile
          kernel built (every query of both searches) and every candidate
          pair the pair kernel scored are then held against their plain
-         versions on the card, each kernel is timed alone at the first
-         search's inputs beside its bound, and the distinct profile words
-         per warp load are counted. It prints the auto gate's prefilter
+         versions on the card; each is timed at the first search's inputs
+         (beside phase 4(b)'s profiler sessions) by torch.profiler's
+         device time beside its bound (the profile step: every kernel and
+         memset its wrapper runs; the pair kernel alone) and by CUDA
+         events around the launches, and the distinct profile words per
+         warp load are counted. It prints the auto gate's prefilter
          choice for the corpus's shape. (b) fits the auto gates' host
          terms on the card's host: the host walk's postings build and
          k-mer walk (GATE_RUNS fresh processes, medians), and the scoring
@@ -799,17 +803,10 @@ def phase3(golden, tmp, seed, clock_hz):
     # every query of both searches: one profile call per search
     p_err, p_plain_ms = _check_calls(
         prof_calls, lambda *a: sw_packed.pair_profile_plain(*a)[0])
-    p_args = prof_calls[0][0]
-    p_ms = [_kernel_ms(sw_packed, sw_packed.pair_profile, p_args,
-                       P3_PROFILE_CALLS, "profile_events")[0]
-            for _ in range(2)]
-    p_bound = _profile_bound(_profile_work(p_args), clock_hz)
     print(f"phase3 profile kernel (bias and profile in one pass) on every "
           f"query of both searches ({[c[0][2].numel() for c in prof_calls]}"
           f" queries, {[c[0][0].numel() for c in prof_calls]} residues): "
-          f"max|kernel-plain| = {p_err}; first search: kernel alone ms "
-          f"{p_ms}, bound {p_bound[0]:.6f} ms ({p_bound[1]}), share "
-          f"{p_bound[0] / min(p_ms):.4f}; plain on the card "
+          f"max|kernel-plain| = {p_err}; plain on the card "
           f"{p_plain_ms:.3f} ms")
     print(f"phase3 bias step over both searches: host _query_bias_i8 "
           f"{split.get('bias', 0.0):.4f} s; the "
@@ -820,32 +817,73 @@ def phase3(golden, tmp, seed, clock_hz):
         raise AssertionError("phase3: profile kernel output != plain")
     # every candidate pair of both searches
     err, plain_ms = _check_calls(calls, sw_packed.sw_pairs_plain)
-    args, (go, ge) = calls[0][0][:7], calls[0][0][7:9]
-    k_ms = [_kernel_ms(sw_packed, sw_packed.sw_pairs, args + (go, ge),
-                       P3_PAIR_CALLS)[0] for _ in range(2)]
-    n_bytes, cells = _pair_work(args)
-    bound = _sw_bound(n_bytes, cells, clock_hz)
-    words = _profile_words_per_load(args)
-    t_lens = args[4][1:] - args[4][:-1]
     print(f"phase3 pair kernel on every candidate pair of both searches "
           f"({[c[0][5].numel() for c in calls]} pairs): max|kernel-plain| "
-          f"= {err}; first search {cells} true cells, longest target "
-          f"{int(t_lens[args[6].long()].max())}: kernel alone ms "
-          f"{k_ms} -> {cells / (min(k_ms) * 1e-3):.6g} cells/s, bound "
-          f"{bound[0]:.6f} ms ({bound[1]}), share "
-          f"{bound[0] / min(k_ms):.4f}; plain on the card {plain_ms:.3f} "
-          f"ms; distinct 16-byte profile words per warp load {words:.3f} "
-          f"of 32")
+          f"= {err}; plain on the card {plain_ms:.3f} ms")
     if err:
         raise AssertionError("phase3: pair kernel output != plain")
     _print_gate(paths["host"])
     return {"launches": launches, "host_wall": host_wall,
             "gpu_wall": gpu_wall, "pair_cells": pair_cells,
-            "max_abs_err": err, "ms": min(k_ms), "plain_ms": plain_ms,
-            "bound": bound, "base": base, "paths": paths,
-            "profile": {"max_abs_err": p_err, "ms": min(p_ms),
-                        "plain_ms": p_plain_ms, "bound": p_bound},
+            "max_abs_err": err, "plain_ms": plain_ms,
+            "pair_args": calls[0][0][:9], "base": base, "paths": paths,
+            "profile": {"max_abs_err": p_err, "plain_ms": p_plain_ms,
+                        "args": prof_calls[0][0]},
             "host_text": host_text, "cand_cells": cand_cells}
+
+
+def phase3_device_times(p3, clock_hz):
+    """Phase 3's two kernels timed at the first search's inputs, each
+    beside its bound: the profile step's device time (every kernel and
+    memset pair_profile puts on the card: the bound counts the whole
+    profile written once) and the pair kernel's, by torch.profiler, with
+    CUDA events around the launches beside them. Run beside phase 4(b)'s
+    profiler sessions: on the H100 a session held right after phase 3
+    made phase 4(b)'s sessions, after phase 3(b) and phase 4's other
+    work, record nothing (cause not found; a fork alone does not).
+    Fills in p3's ms and bounds."""
+    from spacepharer_tpu_torch.ops import sw_packed
+    p_args = p3["profile"]["args"]
+    p_ev = [_kernel_ms(sw_packed, sw_packed.pair_profile, p_args,
+                       P3_PROFILE_CALLS, "profile_events")[0]
+            for _ in range(2)]
+    p_split = _device_split(sw_packed.pair_profile, p_args,
+                            P3_PROFILE_CALLS)[0]
+    if "pair_profile_kernel" not in p_split:
+        raise AssertionError(f"phase3: the profiler saw {sorted(p_split)}, "
+                             "not pair_profile_kernel")
+    p_ms = sum(p_split.values())
+    p_bound = _profile_bound(_profile_work(p_args), clock_hz)
+    print(f"phase3 profile step, first search: device time {p_ms:.6f} ms "
+          f"(torch.profiler, {P3_PROFILE_CALLS} calls: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(p_split.items()))
+          + f"), bound {p_bound[0]:.6f} ms ({p_bound[1]}), share "
+          f"{p_bound[0] / p_ms:.4f}; CUDA events around the launch ms "
+          f"{p_ev}")
+    args, (go, ge) = p3["pair_args"][:7], p3["pair_args"][7:9]
+    k_ev = [_kernel_ms(sw_packed, sw_packed.sw_pairs, args + (go, ge),
+                       P3_PAIR_CALLS)[0] for _ in range(2)]
+    k_split = _device_split(sw_packed.sw_pairs, args + (go, ge),
+                            P3_PAIR_CALLS)[0]
+    if "sw_pairs_kernel" not in k_split:
+        raise AssertionError(f"phase3: the profiler saw {sorted(k_split)}, "
+                             "not sw_pairs_kernel")
+    k_ms = k_split["sw_pairs_kernel"]
+    n_bytes, cells = _pair_work(args)
+    bound = _sw_bound(n_bytes, cells, clock_hz)
+    words = _profile_words_per_load(args)
+    t_lens = args[4][1:] - args[4][:-1]
+    print(f"phase3 pair kernel, first search: {cells} true cells, longest "
+          f"target {int(t_lens[args[6].long()].max())}: kernel device time "
+          f"{k_ms:.6f} ms (torch.profiler, {P3_PAIR_CALLS} calls; the "
+          f"wrapper's device work: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(k_split.items()))
+          + f") -> {cells / (k_ms * 1e-3):.6g} cells/s, bound "
+          f"{bound[0]:.6f} ms ({bound[1]}), share {bound[0] / k_ms:.4f}; "
+          f"CUDA events around the launches ms {k_ev}; distinct 16-byte "
+          f"profile words per warp load {words:.3f} of 32")
+    p3["profile"].update(ms=p_ms, bound=p_bound)
+    p3.update(ms=k_ms, bound=bound)
 
 
 @contextlib.contextmanager
@@ -1314,18 +1352,25 @@ def phase4_stream_cases():
     return err
 
 
+def _device_split(fn, args, n):
+    """({name: mean device ms per call} of fn(*args) by _kernel_split over
+    n calls, last output). One warm-up call."""
+    outs = [fn(*args)]
+    split = _kernel_split(lambda: outs.extend(fn(*args) for _ in range(n)))
+    return {k: v / n for k, v in split.items()}, outs[-1]
+
+
 def _device_ms(fn, args, names=None, n=P4_KERNEL_CALLS):
     """(mean device ms per call of fn(*args), by torch.profiler over n
     calls: the time of the kernels and memsets that _kernel_split names
     `names`, or of all of them; last output). One warm-up call."""
-    outs = [fn(*args)]
-    split = _kernel_split(lambda: outs.extend(fn(*args) for _ in range(n)))
+    split, out = _device_split(fn, args, n)
     if names is not None and not all(k in split for k in names
                                      if k.endswith("_kernel")):
-        raise AssertionError(f"phase4 streams: the profiler saw {sorted(split)}"
-                             f", not all of {names}")
-    ms = sum(v for k, v in split.items() if names is None or k in names)
-    return ms / n, outs[-1]
+        raise AssertionError(f"the profiler saw {sorted(split)}, not all "
+                             f"of {names}")
+    return sum(v for k, v in split.items()
+               if names is None or k in names), out
 
 
 def _max_diff(a, b):
@@ -1527,7 +1572,7 @@ def production_dense_inputs(paths):
             pd.target_boundary_valid(starts, batch.span))
 
 
-def phase4_production(dev, p3):
+def phase4_production(dev, p3, clock_hz):
     """(b): phase 3's query k-mer rows (one chunk) x its whole masked
     target, exact against plain (one plain call each) and timed; and two
     of the gate's constants."""
@@ -1643,6 +1688,9 @@ def phase4_production(dev, p3):
     print(f"phase4 gate constants: whole dense pass {wall:.3f} s -> "
           f"{rate:.6g} cells/s ({nk} k-mers x {len(flat)} residues); fixed "
           f"cost of a dense run in a fresh process {fixed:.3f} s")
+    # the run's torch.profiler sessions, one after another (phase 3's
+    # kernels first)
+    phase3_device_times(p3, clock_hz)
     streams = phase4_streams(batch, gi, gj, flat, starts, seed_m.scores)
     return {"counts": (c_err, k_ms, p_ms), "emit": (e_err, e_k_ms, e_p_ms),
             "library_ms": {"counts": lib_ms, "emit": None},
@@ -2467,7 +2515,8 @@ def _build_all():
     """Build every kernel library at once (one nvcc each), print each
     one's ptxas registers and spills, and the counts of SASS_COUNTED's
     opcodes per kernel function; fail unless the emit kernel runs on the
-    integer tensor cores (IMMA). Returns {library: {function: {opcode:
+    integer tensor cores (IMMA), or if the profile kernel has a DFMA
+    (where cuobjdump can read it). Returns {library: {function: {opcode:
     count}}}."""
     from spacepharer_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
@@ -2496,6 +2545,10 @@ def _build_all():
     if not any(op.startswith("IMMA") for op in emit):
         raise AssertionError("phase0: no IMMA in emit_kernel's SASS (or its "
                              "SASS could not be read)")
+    # the bias is float64 rounded step by step: a DFMA would fuse two
+    if any(op.startswith("DFMA") for ops in sass.get("pair_profile", {})
+           .values() for op in ops):
+        raise AssertionError("phase0: DFMA in pair_profile.cu's SASS")
     return sass
 
 
@@ -2569,7 +2622,7 @@ def main():
         walk = phase3_gates(p3, golden, args.seed)
         case_errs = phase4_cases(dev)
         stream_case_err = phase4_stream_cases()
-        p4 = phase4_production(dev, p3)
+        p4 = phase4_production(dev, p3, clock_hz)
         p4_launches = phase4_predictmatch(p3, tmp)
         phase4_routes(p3, p4, walk)
         p5_errs = phase5_cases(dev)

@@ -67,6 +67,7 @@ PLAIN_MAX_ELEMS = 1 << 24  # DP-state elements per target run (plain)
 PROF8_NEG = -128      # pair-list profile value of pad rows and absent letters
 T_PAD = 8             # readable bytes the pair kernel needs past t_seqs' end
 PAIR_CHUNK = 1 << 24  # pairs per sw_pairs call in device_pair_scores
+PROFILE_FLAG_LETTER = 2  # pair_profile.cu's flag bit: a letter >= alpha
 
 # kernel launches made by sw_allpairs, and the true DP cells (query
 # residues x target residues) they scored; the plain CPU path counts in
@@ -454,13 +455,16 @@ def pair_profile(letters, q_off, q_stripe, n_stripes, scores, expected,
                  comp_bias: bool = True) -> torch.Tensor:
     """The int8 stripe profile of pair_profile_plain, composition bias
     folded in when comp_bias (inputs: letters uint8 [total], q_off int64
-    [n_q + 1], q_stripe int64 [n_q], scores int32 [alpha, alpha], expected
-    float64 [alpha]).
+    [n_q + 1], q_stripe int64 [n_q], each query's first stripe in order,
+    the queries' stripes not overlapping, as pack_pair_queries lays them
+    out; scores int32 [alpha, alpha], expected float64 [alpha]).
 
     On CUDA tensors this launches csrc/pair_profile.cu once over every
-    residue and raises if the kernel cannot be built or launched; on CPU
-    tensors it runs pair_profile_plain. Raises ValueError where a profile
-    value leaves [-127, 127]."""
+    stripe, which writes every byte of the profile (allocated
+    uninitialised), and raises if the kernel cannot be built or launched;
+    on CPU tensors it runs pair_profile_plain. Raises ValueError where a
+    profile value leaves [-127, 127], or, on a card, where a query letter
+    lies outside the matrix's alphabet."""
     global profile_launches
     dev = letters.device
     if dev.type == "cpu":
@@ -484,11 +488,11 @@ def pair_profile(letters, q_off, q_stripe, n_stripes, scores, expected,
                 or alpha > lib.pair_profile_max_alpha()):
             raise ValueError("pair_profile: scores must be [alpha, alpha] "
                              "and expected [alpha], alpha <= 32")
-        prof = torch.full((n_stripes, A_PAD, STRIPE), PROF8_NEG,
-                          dtype=torch.int8, device=dev)
-        flag = torch.zeros(1, dtype=torch.int32, device=dev)
-        total = letters.numel()
-        if total:
+        prof = torch.empty((n_stripes, A_PAD, STRIPE), dtype=torch.int8,
+                           device=dev)
+        flag = 0
+        if n_stripes:
+            flag_d = torch.empty(1, dtype=torch.int32, device=dev)
             cur = torch.cuda.current_stream(dev)
             events = None
             if profile_events is not None:
@@ -499,12 +503,12 @@ def pair_profile(letters, q_off, q_stripe, n_stripes, scores, expected,
                 ctypes.c_void_p(letters.data_ptr()),
                 ctypes.c_void_p(q_off.data_ptr()),
                 ctypes.c_void_p(q_stripe.data_ptr()),
-                ctypes.c_int(q_off.numel() - 1), ctypes.c_longlong(total),
+                ctypes.c_int(q_off.numel() - 1), ctypes.c_longlong(n_stripes),
                 ctypes.c_void_p(scores.data_ptr()),
                 ctypes.c_void_p(expected.data_ptr()), ctypes.c_int(alpha),
                 ctypes.c_int(int(bool(comp_bias))),
                 ctypes.c_void_p(prof.data_ptr()),
-                ctypes.c_void_p(flag.data_ptr()),
+                ctypes.c_void_p(flag_d.data_ptr()),
                 ctypes.c_void_p(cur.cuda_stream))
             if err != 0:
                 raise RuntimeError(f"pair_profile kernel launch failed: "
@@ -513,7 +517,11 @@ def pair_profile(letters, q_off, q_stripe, n_stripes, scores, expected,
             if events is not None:
                 events[1].record(cur)
                 profile_events.append(events)
-        in_range = int(flag) == 0
+            flag = int(flag_d)
+        if flag & PROFILE_FLAG_LETTER:
+            raise ValueError("pair_profile: query letters must lie in the "
+                             "matrix's alphabet")
+        in_range = flag == 0
     if not in_range:
         raise ValueError("pair_profile: profile scores must lie in "
                          "[-127, 127] (int8)")

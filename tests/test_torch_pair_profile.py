@@ -33,6 +33,23 @@ def _queries(seed, lens, x_share=0.05):
     return out
 
 
+def _block_edges():
+    """Queries whose stripes and 20-residue halos cross every boundary of
+    the kernel's blocks of 8 stripes: hundreds of one-stripe queries,
+    queries of 15, 16, 17, 32 and 33 residues, empty queries between
+    them, and one query of 44 stripes."""
+    rng = np.random.default_rng(12)
+    lens = []
+    for k in range(320):
+        lens.append(int(rng.integers(1, 17)))
+        if k % 7 == 3:
+            lens.append(0)
+        if k % 40 == 0:
+            lens += [15, 16, 0, 17, 32, 0, 0, 33]
+    lens.insert(170, 701)
+    return _queries(4, lens)
+
+
 CASES = {
     # spacer ORFs (9-45 residues) and one-residue queries
     "spacer_orfs": lambda: _queries(
@@ -43,6 +60,8 @@ CASES = {
     "long_orfs": lambda: _queries(2, [1794, 9, 613, 45, 1200, 17]),
     # X-rich queries
     "x_rich": lambda: _queries(3, [12, 33, 57, 9], x_share=0.5),
+    # stripes and halos across the kernel's block boundaries
+    "block_edges": _block_edges,
 }
 
 
@@ -193,3 +212,35 @@ def test_cuda_profile_kernel_rounds_and_checks_the_range():
     dev[4] = dev[4] * 20
     with pytest.raises(ValueError, match="int8"):
         sw_packed.pair_profile(*dev)
+    dev[4] = dev[4] // 20
+    dev[0] = dev[0].clone()
+    dev[0][-1] = m.scores.shape[1]
+    with pytest.raises(ValueError, match="alphabet"):
+        sw_packed.pair_profile(*dev)
+
+
+@pytest.mark.cuda
+def test_cuda_profile_kernel_writes_every_byte(monkeypatch):
+    """The wrapper allocates the profile and the flag uninitialised and
+    the kernel writes every byte: with every buffer that torch.empty
+    hands out filled with 0x5A first, the profile still equals the plain
+    version's."""
+    _cuda_or_skip()
+    m = load_matrix("VTML40.out", 2.0)
+    args = _pack_args(CASES["block_edges"](), m)
+    plain, _ = sw_packed.pair_profile_plain(*args)
+    dev = [a.cuda() if torch.is_tensor(a) else a for a in args]
+    empty = torch.empty
+    handed = []
+
+    def junk_empty(*a, **kw):
+        out = empty(*a, **kw)
+        out.view(torch.uint8).fill_(0x5A)
+        handed.append(out.dtype)
+        return out
+
+    monkeypatch.setattr(torch, "empty", junk_empty)
+    got = sw_packed.pair_profile(*dev)
+    monkeypatch.undo()
+    assert torch.int8 in handed
+    assert torch.equal(got.cpu(), plain)
