@@ -10,7 +10,9 @@ Phase 0  requires CUDA, prints the card (nvidia-smi) and builds the
          parallel, sm_90a), printing each entry's registers and spills,
          and counts in the SASS of the built libraries (cuobjdump -sass),
          per kernel function, the DPX min/max opcodes of sw_allpairs and
-         sw_dense, the float64 opcodes of pair_profile, the integer MMA
+         sw_dense (and the shuffles of sw_allpairs, whose pair-list tail
+         passes each row's left edge between lanes), the float64 opcodes
+         of pair_profile, the integer MMA
          opcodes of prefilter_dense and the warp match and vote opcodes of
          prefilter_streams; it fails if the emit kernel has no IMMA or
          the profile kernel has a DFMA.
@@ -34,15 +36,17 @@ Phase 3  builds a real-size corpus from the golden bundle and --seed
          agree, and the GPU run's _search_tpu prints where its time goes
          (host bias, scoring, E-value screen, survivor alignment), the
          scoring step's own split (the query profiles with their
-         composition bias built on the card, uploads, the pair kernel's
-         sort and launches, read-back; the kernel alone by CUDA events)
+         composition bias built on the card, uploads, the pair entry's
+         key pass, sort and launches, read-back; the launches alone by
+         CUDA events)
          and the torch probe's wait. Every query profile the profile
          kernel built (every query of both searches) and every candidate
          pair the pair kernel scored are then held against their plain
          versions on the card; each is timed at the first search's inputs
          (beside phase 4(b)'s profiler sessions) by torch.profiler's
          device time beside its bound (the profile step: every kernel and
-         memset its wrapper runs; the pair kernel alone) and by CUDA
+         memset its wrapper runs; the pair entry's key pass and kernel,
+         PAIR_FUNCTIONS, beside the sort and the rest) and by CUDA
          events around the launches, and the distinct profile words per
          warp load are counted. It prints the auto gate's prefilter
          choice for the corpus's shape. (b) fits the auto gates' host
@@ -199,6 +203,9 @@ KERNELS = {   # library name -> (source, the TPU kernel it replaces)
 STREAM_KERNELS = (("prefilter_streams_ranks", "ranks"),
                   ("prefilter_streams_keys", "keys"),
                   ("prefilter_streams_runs", "runs"))
+# the kernels of B1's pair-list entry, by _kernel_split's names: the key
+# pass and the kernel that scores the tail and the bulk in one launch
+PAIR_FUNCTIONS = ("pair_keys_kernel", "sw_pairs_kernel")
 # the device work of each stream wrapper, by _kernel_split's names
 STREAM_FUNCTIONS = {"ranks": ("mark_halves_kernel", "slots_kernel",
                               "rank_tables_kernel"),
@@ -231,9 +238,9 @@ P4_KERNEL_CALLS = 3   # phase 4(b): calls per timed kernel chain
 P5_KERNEL_CALLS = 5   # phase 5(b): calls per timed kernel chain
 # SASS opcodes counted per kernel function in phase 0: the min/max family
 # of sw_dense and of sw_allpairs (their DPX add-max and three-way max among
-# them) and the integer MMA of prefilter_dense
+# them; and sw_allpairs' shuffles) and the integer MMA of prefilter_dense
 SASS_COUNTED = {"sw_dense": re.compile(r"MNMX"),
-                "sw_allpairs": re.compile(r"MNMX"),
+                "sw_allpairs": re.compile(r"MNMX|^SHFL"),
                 "pair_profile": re.compile(r"^D(ADD|MUL|FMA)|^MUFU"),
                 "prefilter_dense": re.compile(r"^IMMA|^LDSM"),
                 "prefilter_streams": re.compile(r"^MATCH|^VOTE")}
@@ -589,22 +596,24 @@ def mutated_targets(golden, fa_dir, copies, rng):
 
 
 def _profile_words_per_load(args):
-    """The mean number of distinct 16-byte profile words a warp's load
-    asks for, over every (warp, column) of the pair kernel's first stripe,
-    with the pairs in the order sw_pairs sorts them on the card (32 = each
-    thread its own word; the count takes the place of bank conflicts in a
-    kernel without shared memory)."""
+    """(The mean number of distinct 16-byte profile words a bulk warp's
+    load asks for, over every (warp, column) of the pair kernel's first
+    stripe, with the pairs in the order sw_pairs sorts them on the card
+    (32 = each thread its own word; the count takes the place of bank
+    conflicts where the bulk has no shared memory); the tail pairs, which
+    come first and read a shared-memory table instead)."""
     import torch
     from spacepharer_tpu_torch.ops import sw_packed
     _, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t = args
+    key, need, stats = sw_packed.pair_keys_plain(
+        q_len, t_off, pair_q, pair_t, sw_packed.PAIR_TAIL_WORK)
+    n_tail = int(stats[0])
+    order = sw_packed.pair_order(key, need)[0][n_tail:]
     pq, pt = pair_q.long(), pair_t.long()
-    t_lens = (t_off[1:] - t_off[:-1])[pt]
-    stripes = (q_len.long()[pq] + sw_packed.STRIPE - 1) // sw_packed.STRIPE
-    _, order = torch.sort(stripes * (1 << 32) + t_lens, descending=True)
-    tl = t_lens[order]
+    tl = (t_off[1:] - t_off[:-1])[pt][order]
     n_cols = int(tl.sum())
     if n_cols == 0:
-        return 0.0
+        return 0.0, n_tail
     rep = torch.repeat_interleave(torch.arange(len(tl), device=tl.device),
                                   tl, output_size=n_cols)
     col = torch.arange(n_cols, device=tl.device) - (torch.cumsum(tl, 0)
@@ -613,7 +622,7 @@ def _profile_words_per_load(args):
     word = q_stripe[pq[order]][rep] * 32 + letter
     request = (rep // 32) * (int(tl.max()) + 1) + col
     words = torch.unique(request * (int(word.max()) + 1) + word).numel()
-    return words / torch.unique(request).numel()
+    return words / torch.unique(request).numel(), n_tail
 
 
 def _pair_work(args):
@@ -836,7 +845,8 @@ def phase3_device_times(p3, clock_hz):
     """Phase 3's two kernels timed at the first search's inputs, each
     beside its bound: the profile step's device time (every kernel and
     memset pair_profile puts on the card: the bound counts the whole
-    profile written once) and the pair kernel's, by torch.profiler, with
+    profile written once) and the pair entry's (its key pass and the
+    kernel that scores the tail and the bulk), by torch.profiler, with
     CUDA events around the launches beside them. Run beside phase 4(b)'s
     profiler sessions: on the H100 a session held right after phase 3
     made phase 4(b)'s sessions, after phase 3(b) and phase 4's other
@@ -865,23 +875,25 @@ def phase3_device_times(p3, clock_hz):
                        P3_PAIR_CALLS)[0] for _ in range(2)]
     k_split = _device_split(sw_packed.sw_pairs, args + (go, ge),
                             P3_PAIR_CALLS)[0]
-    if "sw_pairs_kernel" not in k_split:
+    if not all(k in k_split for k in PAIR_FUNCTIONS):
         raise AssertionError(f"phase3: the profiler saw {sorted(k_split)}, "
-                             "not sw_pairs_kernel")
-    k_ms = k_split["sw_pairs_kernel"]
+                             f"not all of {PAIR_FUNCTIONS}")
+    k_ms = sum(k_split[k] for k in PAIR_FUNCTIONS)
     n_bytes, cells = _pair_work(args)
     bound = _sw_bound(n_bytes, cells, clock_hz)
-    words = _profile_words_per_load(args)
+    words, n_tail = _profile_words_per_load(args)
     t_lens = args[4][1:] - args[4][:-1]
-    print(f"phase3 pair kernel, first search: {cells} true cells, longest "
-          f"target {int(t_lens[args[6].long()].max())}: kernel device time "
-          f"{k_ms:.6f} ms (torch.profiler, {P3_PAIR_CALLS} calls; the "
-          f"wrapper's device work: "
+    print(f"phase3 pair kernels, first search: {cells} true cells, "
+          f"{args[5].numel()} pairs ({n_tail} in the tail), longest target "
+          f"{int(t_lens[args[6].long()].max())}: device time "
+          f"{k_ms:.6f} ms ({' + '.join(PAIR_FUNCTIONS)}; torch.profiler, "
+          f"{P3_PAIR_CALLS} calls; the wrapper's device work: "
           + ", ".join(f"{k} {v:.6f}" for k, v in sorted(k_split.items()))
-          + f") -> {cells / (k_ms * 1e-3):.6g} cells/s, bound "
+          + f"; the whole call {sum(k_split.values()):.6f}) -> "
+          f"{cells / (k_ms * 1e-3):.6g} cells/s, bound "
           f"{bound[0]:.6f} ms ({bound[1]}), share {bound[0] / k_ms:.4f}; "
-          f"CUDA events around the launches ms {k_ev}; distinct 16-byte "
-          f"profile words per warp load {words:.3f} of 32")
+          f"CUDA events around the main launches ms {k_ev}; distinct "
+          f"16-byte profile words per bulk warp load {words:.3f} of 32")
     p3["profile"].update(ms=p_ms, bound=p_bound)
     p3.update(ms=k_ms, bound=bound)
 

@@ -67,6 +67,17 @@ PLAIN_MAX_ELEMS = 1 << 24  # DP-state elements per target run (plain)
 PROF8_NEG = -128      # pair-list profile value of pad rows and absent letters
 T_PAD = 8             # readable bytes the pair kernel needs past t_seqs' end
 PAIR_CHUNK = 1 << 24  # pairs per sw_pairs call in device_pair_scores
+# serial work (query stripes x target length) from which a pair leaves the
+# pair kernel's bulk (a thread a pair) for its tail (a half-warp a pair).
+# tools/time_pair_kernel.py --sweep on chip_smoke.py phase 3's first search
+# (46,605 pairs; NVIDIA H100 80GB HBM3, 700 W): the kernels took 0.1129,
+# 0.0859, 0.0857, 0.0854 ms at 256, 384, 512, 640 (7,699, 3,380, 1,774 and
+# 604 tail pairs): flat from 384 to 640, 512 in its middle
+PAIR_TAIL_WORK = 512
+LINE_COLS = 16        # a scratch line's length rounds up to this
+SHORT_ROWS = 12       # rows of the bulk's variant for short queries
+TAIL_KEY = 1 << 14    # int16 sort-key bit of a tail pair
+KEY_LEN_BITS = 11     # a bulk key: stripes, > SHORT_ROWS rows, length
 PROFILE_FLAG_LETTER = 2  # pair_profile.cu's flag bit: a letter >= alpha
 
 # kernel launches made by sw_allpairs, and the true DP cells (query
@@ -595,16 +606,80 @@ def sw_pairs_plain(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
     return out
 
 
+def pair_keys_plain(q_len, t_off, pair_q, pair_t, tail_work: int):
+    """Plain PyTorch version of the pair kernel's key pass, on the inputs'
+    device: (int16 [n] sort keys, int64 [n] scratch int2s, int64 [2]:
+    tail pairs, true cells). A pair whose serial work, stripes x target
+    length, reaches tail_work is a tail pair: its key holds TAIL_KEY and
+    its work, above every bulk key (stripes, then whether the query has
+    more than SHORT_ROWS rows, then target length, each clamped to its
+    bits: the order is a matter of speed, never of the scores). A pair
+    whose query is longer than one stripe needs a scratch line of its
+    target's length, rounded up to LINE_COLS columns."""
+    q_lens = q_len.long()[pair_q.long()]
+    t = pair_t.long()
+    t_lens = t_off[t + 1] - t_off[t]
+    stripes = (q_lens + STRIPE - 1) // STRIPE
+    work = stripes * t_lens
+    tail = work >= tail_work
+    key = torch.where(
+        tail, TAIL_KEY | work.clamp(max=TAIL_KEY - 1),
+        stripes.clamp(max=3) << KEY_LEN_BITS + 1
+        | (q_lens > SHORT_ROWS).long() << KEY_LEN_BITS
+        | t_lens.clamp(max=(1 << KEY_LEN_BITS) - 1)).to(torch.int16)
+    need = torch.where(q_lens > STRIPE,
+                       (t_lens + LINE_COLS - 1) // LINE_COLS * LINE_COLS,
+                       0)
+    return key, need, torch.stack([tail.sum(), (q_lens * t_lens).sum()])
+
+
+def pair_keys(q_len, t_off, pair_q, pair_t, tail_work: int):
+    """pair_keys_plain's (keys, needs, counts) for the pairs (inputs as
+    sw_pairs takes them). On CUDA tensors this launches the key pass of
+    csrc/sw_allpairs.cu (the counts zeroed by its launcher) and raises if
+    it cannot be built or launched; on CPU tensors it runs
+    pair_keys_plain."""
+    dev = pair_q.device
+    if dev.type == "cpu":
+        return pair_keys_plain(q_len, t_off, pair_q, pair_t, tail_work)
+    from ._cuda import library
+    n = pair_q.numel()
+    key = torch.empty(n, dtype=torch.int16, device=dev)
+    need = torch.empty(n, dtype=torch.int64, device=dev)
+    stats = torch.empty(2, dtype=torch.int64, device=dev)
+    err = library("sw_allpairs").sw_pairs_keys_launch(
+        ctypes.c_void_p(q_len.data_ptr()), ctypes.c_void_p(t_off.data_ptr()),
+        ctypes.c_void_p(pair_q.data_ptr()),
+        ctypes.c_void_p(pair_t.data_ptr()), ctypes.c_int(n),
+        ctypes.c_longlong(tail_work), ctypes.c_void_p(key.data_ptr()),
+        ctypes.c_void_p(need.data_ptr()), ctypes.c_void_p(stats.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"sw_pairs key pass launch failed: CUDA error "
+                           f"{err}")
+    return key, need, stats
+
+
+def pair_order(key, need):
+    """(order int64 [n]: the pair at each sorted position, tail pairs
+    first; end int64 [n]: the running sum of the scratch int2s in that
+    order) of pair_keys' keys and needs."""
+    order = torch.sort(key, descending=True)[1]
+    return order, torch.cumsum(need[order], 0)
+
+
 def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
              gap_open: int = 16, gap_extend: int = 2) -> torch.Tensor:
     """int32 [n] best SW score of each (pair_q[p], pair_t[p]) pair, in
     pair order (layout: module docstring).
 
-    On CUDA tensors this sorts the pairs on the card by stripe count, then
-    target length, longest first, and launches csrc/sw_allpairs.cu's
-    pair-list entry, which writes each score at its pair's position; it
-    raises if the kernel cannot be built or launched. On CPU tensors it
-    runs sw_pairs_plain."""
+    On CUDA tensors this runs csrc/sw_allpairs.cu's key pass over the
+    pairs, sorts its keys (torch.sort, int16) so that the tail pairs, of
+    serial work at least PAIR_TAIL_WORK, come first, and launches the
+    pair-list entry, which scores the tail a half-warp a pair and the
+    bulk a thread a pair in one launch and writes each score at its
+    pair's position; it raises if a kernel cannot be built or launched.
+    On CPU tensors it runs sw_pairs_plain."""
     global pair_launches, pair_cells
     dev = prof.device
     if dev.type == "cpu":
@@ -635,23 +710,25 @@ def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    t_lens = (t_off[1:] - t_off[:-1])[pair_t.long()]
-    q_lens = q_len.long()[pair_q.long()]
-    stripes = (q_lens + STRIPE - 1) // STRIPE
-    _, order = torch.sort(stripes * (1 << 32) + t_lens, descending=True)
-    pq, pt = pair_q[order], pair_t[order]
-    # a pair whose query is longer than one stripe hands stripe boundaries
-    # through a scratch line of its target's length; a launch takes the
-    # pairs whose lines start within one SCRATCH_BYTES budget
-    need = torch.where(stripes[order] > 1, t_lens[order], 0)
-    end = torch.cumsum(need, 0)
-    start = end - need
-    group = start // max(1, SCRATCH_BYTES // 8)
-    n_groups = int(group[-1]) + 1
-    bounds = torch.searchsorted(
-        group, torch.arange(n_groups + 1, device=dev)).tolist()
-    spans = [(a, b) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
-    size = max(int(end[b - 1] - start[a]) for a, b in spans)
+    key, need, stats = pair_keys(q_len, t_off, pair_q, pair_t,
+                                 PAIR_TAIL_WORK)
+    order, end = pair_order(key, need)
+    n_tail, cells, total = torch.cat([stats, end[-1:]]).tolist()
+    # a launch takes the sorted positions whose scratch lines start within
+    # one SCRATCH_BYTES budget
+    budget = max(1, SCRATCH_BYTES // 8)
+    if total <= budget:
+        spans, bases, size = [(0, n)], [0], total
+    else:
+        start = end - need[order]
+        group = start // budget
+        bounds = torch.searchsorted(
+            group, torch.arange(int(group[-1]) + 2, device=dev)).tolist()
+        spans = [(a, b) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+        first = torch.tensor([a for a, _ in spans], device=dev)
+        last = torch.tensor([b - 1 for _, b in spans], device=dev)
+        bases, tops = torch.stack([start[first], end[last]]).tolist()
+        size = max(t - s for s, t in zip(bases, tops))
     scratch = torch.empty(2 * max(size, 1), dtype=torch.int32, device=dev)
     cur = torch.cuda.current_stream(dev)
     events = None
@@ -659,20 +736,20 @@ def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
         events = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
         events[0].record(cur)
-    for a, b in spans:
-        scr_off = torch.where(need[a:b] > 0, start[a:b] - start[a], -1)
+    for (a, b), base in zip(spans, bases):
         err = lib.sw_pairs_launch(
             ctypes.c_void_p(prof.data_ptr()),
             ctypes.c_void_p(q_stripe.data_ptr()),
             ctypes.c_void_p(q_len.data_ptr()),
             ctypes.c_void_p(t_seqs.data_ptr()),
             ctypes.c_void_p(t_off.data_ptr()),
-            ctypes.c_void_p(pq[a:].data_ptr()),
-            ctypes.c_void_p(pt[a:].data_ptr()),
+            ctypes.c_void_p(pair_q.data_ptr()),
+            ctypes.c_void_p(pair_t.data_ptr()),
             ctypes.c_void_p(order[a:].data_ptr()),
-            ctypes.c_void_p(scr_off.data_ptr()), ctypes.c_int(b - a),
-            ctypes.c_int(gap_open), ctypes.c_int(gap_extend),
-            ctypes.c_void_p(scratch.data_ptr()),
+            ctypes.c_void_p(end[a:].data_ptr()), ctypes.c_int(b - a),
+            ctypes.c_int(min(max(n_tail - a, 0), b - a)),
+            ctypes.c_longlong(base), ctypes.c_int(gap_open),
+            ctypes.c_int(gap_extend), ctypes.c_void_p(scratch.data_ptr()),
             ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(cur.cuda_stream))
         if err != 0:
             raise RuntimeError(f"sw_pairs kernel launch failed: CUDA error "
@@ -681,7 +758,7 @@ def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
     if events is not None:
         events[1].record(cur)
         launch_events.append(events)
-    pair_cells += int((q_lens * t_lens).sum())
+    pair_cells += cells
     return out
 
 

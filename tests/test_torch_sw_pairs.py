@@ -53,6 +53,21 @@ def _make(seed, q_lens, t_lens, per_query, alphabet=20, bias="random",
     return qs, ts, biases, cand_t, cand_off, gaps[0], gaps[1]
 
 
+def _self_aligned(seed):
+    """A 530-row query that is the first 530 letters of a 560-letter
+    target, beside short ones: the best path runs down the diagonal through
+    the corners where the pair kernel's stripes (16 rows) and column
+    blocks (16 columns, 256-column passes) meet."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 20, 560)
+    qs = [t[:530].copy(), rng.integers(0, 20, 20), rng.integers(0, 20, 40)]
+    ts = [t, rng.integers(0, 20, 300), rng.integers(0, 20, 9)]
+    biases = [rng.integers(-3, 4, len(q)) for q in qs]
+    cand_t = np.array([0, 1, 0, 2, 0, 1], dtype=np.int64)
+    cand_off = np.array([0, 2, 4, 6], dtype=np.int64)
+    return qs, ts, biases, cand_t, cand_off, 16, 2
+
+
 CASES = {
     # past one and two 16-row stripes (17, 32, 33, 40 rows), with a
     # stripe-exact query and an empty one among them
@@ -84,6 +99,13 @@ CASES = {
         7, np.random.default_rng(70).integers(3, 24, 160),
         np.random.default_rng(71).integers(5, 120, 40),
         lambda r: r.integers(0, 5)),
+    # targets of 600-1,500 residues beside short ones, queries of 2 and 7
+    # stripes among them: at the default split both the tail (a
+    # half-warp a pair, stripe after stripe) and the bulk take pairs
+    "long_targets": lambda: _make(
+        8, [25, 110, 12, 9], [600, 1500, 30, 900, 8, 41],
+        lambda r: r.integers(2, 5)),
+    "self_aligned": lambda: _self_aligned(9),
 }
 
 
@@ -190,6 +212,68 @@ def test_pack_pair_queries_layout():
                                     [np.array([1])])
 
 
+def _pair_tensors(case):
+    """(sw_pairs' CPU tensors, gap_open, gap_extend) of a CASES entry."""
+    qs, ts, biases, cand_t, cand_off, go, ge = CASES[case]()
+    m = load_matrix("VTML40.out", 2.0)
+    qp = sw_packed.pack_pair_queries(qs, m.scores, biases)
+    t_flat, t_off = _packed_targets(ts)
+    return (qp["prof"], qp["q_stripe"], qp["q_len"],
+            torch.from_numpy(np.concatenate(
+                [t_flat, np.zeros(sw_packed.T_PAD, np.uint8)])),
+            torch.from_numpy(t_off),
+            torch.from_numpy(_pairs(cand_off).astype(np.int32)),
+            torch.from_numpy(cand_t.astype(np.int32))), go, ge
+
+
+SPLITS = {"default": None, "all_tail": 0, "all_bulk": (1 << 63) - 1}
+
+
+@pytest.mark.parametrize("split", list(SPLITS))
+@pytest.mark.parametrize("case", ["long_targets", "long_queries",
+                                  "many_queries"])
+def test_pair_order_places_every_pair_once(case, split):
+    """The pair kernel's order: every pair at one sorted position, the
+    pairs of serial work >= the split first, the bulk by stripes then
+    target length, scratch lines end to end for exactly the pairs that
+    hand rows down, and a score computed at position i and written to
+    out[order[i]] lands at its pair's position."""
+    args, go, ge = _pair_tensors(case)
+    prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t = args
+    work_at = sw_packed.PAIR_TAIL_WORK if SPLITS[split] is None \
+        else SPLITS[split]
+    key, need, stats = sw_packed.pair_keys(q_len, t_off, pair_q, pair_t,
+                                           work_at)
+    order, end = sw_packed.pair_order(key, need)
+    n = pair_q.numel()
+    assert sorted(order.tolist()) == list(range(n))
+    q_lens = q_len.long()[pair_q.long()][order]
+    t_lens = (t_off[1:] - t_off[:-1])[pair_t.long()][order]
+    stripes = (q_lens + 15) // 16
+    work = stripes * t_lens
+    n_tail, cells = stats.tolist()
+    assert cells == int((q_lens * t_lens).sum())
+    assert bool((work[:n_tail] >= work_at).all())
+    assert bool((work[n_tail:] < work_at).all())
+    assert work[:n_tail].tolist() == sorted(work[:n_tail].tolist(),
+                                            reverse=True)
+    short = (q_lens[n_tail:] > sw_packed.SHORT_ROWS).long()
+    bulk = (stripes[n_tail:].clamp(max=3) << 33 | short << 32
+            | t_lens[n_tail:].clamp(max=2047)).tolist()
+    assert bulk == sorted(bulk, reverse=True)
+    if split == "default":
+        assert 0 < n_tail < n or case != "long_targets"
+    lines = torch.where(q_lens > 16, (t_lens + 15) // 16 * 16, 0)
+    assert torch.equal(end, torch.cumsum(lines, 0))
+    scored = sw_packed.sw_pairs_plain(prof, q_stripe, q_len, t_seqs, t_off,
+                                      pair_q[order].contiguous(),
+                                      pair_t[order].contiguous(), go, ge)
+    out = torch.full((n,), -1, dtype=torch.int32)
+    out[order] = scored
+    np.testing.assert_array_equal(
+        out.numpy(), sw_packed.sw_pairs_plain(*args, go, ge).numpy())
+
+
 def test_device_pair_scores_rejects_letters_outside_the_matrix():
     m = load_matrix("VTML40.out", 2.0)
     with pytest.raises(ValueError, match="alphabet"):
@@ -286,6 +370,43 @@ def test_cuda_pair_kernel_matches_plain(case):
     assert sw_packed.pair_launches > before or len(cand_t) == 0
     np.testing.assert_array_equal(
         got, sw_packed.device_pair_scores(*args, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["all_tail", "all_bulk"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_cuda_pair_kernel_forced_class_matches_plain(case, split,
+                                                     monkeypatch):
+    """Every pair in the tail (a half-warp a pair, lanes over column
+    blocks), or every pair in the bulk (a thread a pair), gives the
+    plain scores."""
+    _cuda_or_skip()
+    qs, ts, biases, cand_t, cand_off, go, ge = CASES[case]()
+    m = load_matrix("VTML40.out", 2.0)
+    args = (qs, biases, *_packed_targets(ts), cand_t, cand_off, m.scores,
+            go, ge)
+    monkeypatch.setattr(sw_packed, "PAIR_TAIL_WORK", SPLITS[split])
+    np.testing.assert_array_equal(
+        sw_packed.device_pair_scores(*args, device="cuda"),
+        sw_packed.device_pair_scores(*args, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_cuda_pair_keys_match_plain(case):
+    """The key pass on the card gives pair_keys_plain's keys, scratch
+    needs and counts, at the default split and with every pair a tail
+    pair."""
+    _cuda_or_skip()
+    args, _, _ = _pair_tensors(case)
+    dev = torch.device("cuda")
+    _, _, q_len, _, t_off, pair_q, pair_t = (x.to(dev) for x in args)
+    for work_at in (sw_packed.PAIR_TAIL_WORK, 0):
+        got = sw_packed.pair_keys(q_len, t_off, pair_q, pair_t, work_at)
+        want = sw_packed.pair_keys_plain(q_len, t_off, pair_q, pair_t,
+                                         work_at)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
 
 
 @pytest.mark.cuda
