@@ -41,8 +41,9 @@ Phase 3  builds a real-size corpus from the golden bundle and --seed
          CUDA events)
          and the torch probe's wait. Every query profile the profile
          kernel built (every query of both searches) and every candidate
-         pair the pair kernel scored are then held against their plain
-         versions on the card; each is timed at the first search's inputs
+         pair the pair kernel scored, and every key pass the pair entry
+         ran, are then held against their plain versions on the card;
+         each is timed at the first search's inputs
          (beside phase 4(b)'s profiler sessions) by torch.profiler's
          device time beside its bound (the profile step: every kernel and
          memset its wrapper runs; the pair entry's key pass and kernel,
@@ -259,6 +260,11 @@ SMS, INT32_LANES = 132, 64
 # E' = addmax_relu(E, -ge, t); H = max(h_pre, F); F' = addmax(F, -ge, t);
 # best = max(best, H)
 SW_OPS_PER_CELL = 6
+# least int32 operations per pair of the pair entry's key pass: stripes
+# (add, shift), work (multiply), the tail test, the key (two clamps, two
+# shifts, two ors), the scratch need (test, add, shift) and the true cells
+# (multiply)
+PAIR_KEY_OPS = 14
 # kernels whose TPU counterpart no product path calls: held against their
 # plain versions, never launched on the main path
 NO_PRODUCT_CALLER = ("sw_dense_one_query", "sw_allpairs")
@@ -642,6 +648,18 @@ def _pair_work(args):
     return n_bytes, cells
 
 
+def _pair_key_work(args):
+    """(bytes, int32 operations) of one key pass over sw_pairs' pairs: the
+    pair list, each named query's length and target's two offsets read
+    once, an int16 key, an int64 scratch need a pair and the two counts
+    written once; PAIR_KEY_OPS int32 operations a pair."""
+    import torch
+    _, _, _, _, _, pair_q, pair_t = args
+    n = pair_q.numel()
+    n_q, n_t = (torch.unique(x).numel() for x in (pair_q, pair_t))
+    return 8 * n + 4 * n_q + 16 * n_t + 10 * n + 16, PAIR_KEY_OPS * n
+
+
 def _profile_work(args):
     """(bytes, float64 operations, int32 operations) of one pair_profile
     call: its letters, query offsets and stripes, matrix and table read
@@ -711,6 +729,7 @@ def _fresh_run(base, paths, run, *flags):
 
 
 def phase3(golden, tmp, seed, clock_hz):
+    import torch
     from spacepharer_tpu_torch.logging import timings
     from spacepharer_tpu_torch.ops import sw_packed
     from spacepharer_tpu_torch.pipeline import predictmatch as pm
@@ -724,14 +743,20 @@ def phase3(golden, tmp, seed, clock_hz):
     # GPU engine forced on, in this process: count launches and the
     # candidate cells the device engine is handed, keep every pair-kernel
     # call's inputs and output for _check_calls, and split the scoring step
-    cand_cells, calls, prof_calls = [], [], []
+    cand_cells, calls, prof_calls, key_calls = [], [], [], []
     search_tpu = pm._search_tpu
     pairs = sw_packed.sw_pairs
     profile = sw_packed.pair_profile
+    keys = sw_packed.pair_keys
 
     def _kept(*a):
         out = pairs(*a)
         calls.append((a[:9], out.clone()))
+        return out
+
+    def _kept_keys(*a):
+        out = keys(*a)
+        key_calls.append((a, tuple(x.clone() for x in out)))
         return out
 
     def _kept_profile(*a, comp_bias):
@@ -748,10 +773,11 @@ def phase3(golden, tmp, seed, clock_hz):
     gpu_out = os.path.join(base, "gpu.tsv")
     pm._search_tpu = _counted
     sw_packed.sw_pairs = _kept
+    sw_packed.pair_keys = _kept_keys
     sw_packed.pair_profile = _kept_profile
     sw_packed.launches = sw_packed.cells = 0
     sw_packed.pair_launches = sw_packed.pair_cells = 0
-    sw_packed.profile_launches = 0
+    sw_packed.pair_key_launches = sw_packed.profile_launches = 0
     sw_packed.pair_timing, sw_packed.launch_events = {}, []
     before = timings()
     split = {}
@@ -765,11 +791,13 @@ def phase3(golden, tmp, seed, clock_hz):
     finally:
         pm._search_tpu = search_tpu
         sw_packed.sw_pairs = pairs
+        sw_packed.pair_keys = keys
         sw_packed.pair_profile = profile
         pair_split, events = sw_packed.pair_timing, sw_packed.launch_events
         sw_packed.pair_timing = sw_packed.launch_events = None
     gpu_wall = time.perf_counter() - t0
     launches = {"sw_pairs": sw_packed.pair_launches,
+                "sw_pairs_keys": sw_packed.pair_key_launches,
                 "sw_allpairs": sw_packed.launches,
                 "pair_profile": sw_packed.profile_launches}
     pair_cells = sw_packed.pair_cells
@@ -801,11 +829,11 @@ def phase3(golden, tmp, seed, clock_hz):
           f"{len(gpu_text)} bytes, {n_hits} hit lines")
     if host_text != gpu_text:
         raise AssertionError("phase3: host and GPU texts differ")
-    if (launches["sw_pairs"] <= 0 or launches["sw_allpairs"]
-            or launches["pair_profile"] <= 0):
+    if (min(launches["sw_pairs"], launches["sw_pairs_keys"],
+            launches["pair_profile"]) <= 0 or launches["sw_allpairs"]):
         raise AssertionError(f"phase3: launches {launches} (the pair "
-                             "entry and the profile kernel alone must "
-                             "launch)")
+                             "entry, its key pass and the profile kernel "
+                             "alone must launch)")
     if split.get("bias", 0.0):
         raise AssertionError("phase3: the GPU engine built a bias on the "
                              "host")
@@ -824,6 +852,26 @@ def phase3(golden, tmp, seed, clock_hz):
           f"synchronise); _search_tpu {split.get('_search_tpu', 0.0):.3f} s")
     if p_err:
         raise AssertionError("phase3: profile kernel output != plain")
+    # every key pass of both searches: keys, scratch needs and counts
+    k_err, k_plain_ms = 0, []
+    for a, got in key_calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = sw_packed.pair_keys_plain(*a)
+        torch.cuda.synchronize()
+        k_plain_ms.append((time.perf_counter() - t0) * 1e3)
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                k_err = max(k_err, _max_diff(g, w), 1)
+    print(f"phase3 pair key pass on every candidate pair of both searches "
+          f"({[c[0][2].numel() for c in key_calls]} pairs, tail pairs "
+          f"{[int(c[1][2][0]) for c in key_calls]}): keys, needs and counts "
+          f"equal to pair_keys_plain's: {k_err == 0} (max|kernel-plain| = "
+          f"{k_err}); plain on the card {k_plain_ms[0]:.3f} ms")
+    if k_err or len(key_calls) != launches["sw_pairs_keys"]:
+        raise AssertionError(f"phase3: key pass != plain ({k_err}) or "
+                             f"{len(key_calls)} key calls for "
+                             f"{launches['sw_pairs_keys']} launches")
     # every candidate pair of both searches
     err, plain_ms = _check_calls(calls, sw_packed.sw_pairs_plain)
     print(f"phase3 pair kernel on every candidate pair of both searches "
@@ -835,6 +883,7 @@ def phase3(golden, tmp, seed, clock_hz):
     return {"launches": launches, "host_wall": host_wall,
             "gpu_wall": gpu_wall, "pair_cells": pair_cells,
             "max_abs_err": err, "plain_ms": plain_ms,
+            "keys": {"max_abs_err": k_err, "plain_ms": k_plain_ms[0]},
             "pair_args": calls[0][0][:9], "base": base, "paths": paths,
             "profile": {"max_abs_err": p_err, "plain_ms": p_plain_ms,
                         "args": prof_calls[0][0]},
@@ -881,6 +930,7 @@ def phase3_device_times(p3, clock_hz):
     k_ms = sum(k_split[k] for k in PAIR_FUNCTIONS)
     n_bytes, cells = _pair_work(args)
     bound = _sw_bound(n_bytes, cells, clock_hz)
+    key_bound = _bound(*_pair_key_work(args), SMS * INT32_LANES * clock_hz)
     words, n_tail = _profile_words_per_load(args)
     t_lens = args[4][1:] - args[4][:-1]
     print(f"phase3 pair kernels, first search: {cells} true cells, "
@@ -891,11 +941,16 @@ def phase3_device_times(p3, clock_hz):
           + ", ".join(f"{k} {v:.6f}" for k, v in sorted(k_split.items()))
           + f"; the whole call {sum(k_split.values()):.6f}) -> "
           f"{cells / (k_ms * 1e-3):.6g} cells/s, bound "
-          f"{bound[0]:.6f} ms ({bound[1]}), share {bound[0] / k_ms:.4f}; "
+          f"{bound[0]:.6f} ms ({bound[1]}), share {bound[0] / k_ms:.4f} "
+          f"(sw_pairs_kernel alone "
+          f"{bound[0] / k_split['sw_pairs_kernel']:.4f}; the key pass's own "
+          f"bound {key_bound[0]:.6f} ms ({key_bound[1]}), share "
+          f"{key_bound[0] / k_split['pair_keys_kernel']:.4f}); "
           f"CUDA events around the main launches ms {k_ev}; distinct "
           f"16-byte profile words per bulk warp load {words:.3f} of 32")
     p3["profile"].update(ms=p_ms, bound=p_bound)
-    p3.update(ms=k_ms, bound=bound)
+    p3.update(ms=k_split["sw_pairs_kernel"], bound=bound)
+    p3["keys"].update(ms=k_split["pair_keys_kernel"], bound=key_bound)
 
 
 @contextlib.contextmanager
@@ -2668,6 +2723,14 @@ def main():
                "ms": p3["ms"], "plain_ms": p3["plain_ms"],
                "bound_ms": p3["bound"][0], "bound_by": p3["bound"][1],
                "library_ms": None},
+              # the pair entry's key pass: part of B1's pair-list port
+              {"name": "sw_pairs_keys", "route": "cuda", "source": sw_src,
+               "replaces": sw_replaces,
+               "launches": p3["launches"]["sw_pairs_keys"],
+               "max_abs_err": p3["keys"]["max_abs_err"],
+               "ms": p3["keys"]["ms"], "plain_ms": p3["keys"]["plain_ms"],
+               "bound_ms": p3["keys"]["bound"][0],
+               "bound_by": p3["keys"]["bound"][1], "library_ms": None},
               {"name": "pair_profile", "route": "cuda", "source": pp_src,
                "replaces": pp_replaces,
                "launches": p3["launches"]["pair_profile"],

@@ -192,6 +192,10 @@ constexpr int kShortRows = 12;     // rows of the short bulk variant
 // rows (1 bit), target length (11 bits), each clamped to its bits
 constexpr int kTailKey = 1 << 14;
 constexpr int kKeyLenBits = 11;
+// a scratch line's length rounds up to this: the tail writes a lane's 16
+// columns whole, the bulk 4-column groups
+constexpr int kLineCols = kStripe;
+static_assert(kLineCols % kGroup == 0, "the bulk writes whole groups");
 constexpr uint32_t kFull = 0xffffffffu;
 
 // Row r's score, sign-extended from the int8 column word of a stripe: one
@@ -233,13 +237,6 @@ __device__ __forceinline__ void letter_words(const uint8_t* tp, int c,
 // end; the mask keeps every profile index in bounds whatever the bytes hold.
 __device__ __forceinline__ int letter_at(uint32_t w, int k, int c, int tlen) {
   return c + k < tlen ? (w >> (8 * k)) & (kAlpha - 1) : kAlpha - 1;
-}
-
-// The int2s of a pair's scratch line, which hands each stripe's bottom row
-// to the next stripe; it runs to a whole 16-column block, since the tail
-// writes blocks whole and the bulk 4-column groups.
-__device__ __forceinline__ int64_t pair_need(int qlen, int tlen) {
-  return qlen > kStripe ? (tlen + kStripe - 1) / kStripe * kStripe : 0;
 }
 
 // A bulk pair: one thread, the kRows rows of a 16-row stripe in registers,
@@ -489,6 +486,10 @@ __device__ __forceinline__ int tail_pair(const uint4* qp, int qlen,
 // (serial work stripes x target length >= tail_work) above every bulk pair,
 // longest first; bulk pairs by stripe count, then target length, clamped
 // into their bits (the order is a matter of speed, never of the scores).
+// A pair whose query is longer than one stripe needs a scratch line, which
+// hands each stripe's bottom row to the next stripe: its target's length in
+// int2s, rounded up to kLineCols. This is the one place that sizes a line:
+// the scoring kernel finds each line's start in the running sum of these.
 __global__ void __launch_bounds__(kPairThreads)
 pair_keys_kernel(const int32_t* __restrict__ q_len,    // [n_q]
                  const int64_t* __restrict__ t_off,    // [n_t + 1]
@@ -514,7 +515,8 @@ pair_keys_kernel(const int32_t* __restrict__ q_len,    // [n_q]
              : min(stripes, 3) << (kKeyLenBits + 1) |
                    (qlen > kShortRows) << kKeyLenBits |
                    min(tlen, (1 << kKeyLenBits) - 1));
-    need[p] = pair_need(qlen, tlen);
+    need[p] = qlen > kStripe ? (tlen + kLineCols - 1) / kLineCols * kLineCols
+                             : 0;
     cells = static_cast<unsigned long long>(qlen) * tlen;
   }
   tail = __reduce_add_sync(kFull, tail);
@@ -541,7 +543,7 @@ sw_pairs_kernel(const uint4* __restrict__ prof,        // [stripes][32] x 16 int
                 const int32_t* __restrict__ pair_q,    // [*] query of a pair
                 const int32_t* __restrict__ pair_t,    // [*] target of a pair
                 const int64_t* __restrict__ order,     // [n] pair at position
-                const int64_t* __restrict__ scr_end,   // [n] need, summed
+                const int64_t* __restrict__ scr_end,   // [n] needs, summed
                 int n, int n_tail, long long scr_base, int gap_open,
                 int gap_extend, int2* __restrict__ scratch,
                 int32_t* __restrict__ out) {
@@ -558,8 +560,7 @@ sw_pairs_kernel(const uint4* __restrict__ prof,        // [stripes][32] x 16 int
     const int qlen = q_len[q];
     const int64_t t0 = t_off[pair_t[p]];
     const int tlen = static_cast<int>(t_off[pair_t[p] + 1] - t0);
-    const int64_t need = pair_need(qlen, tlen);
-    int2* scr = need ? scratch + (scr_end[i] - need - scr_base) : nullptr;
+    int2* scr = scratch + (i > 0 ? scr_end[i - 1] - scr_base : 0);
     const uint4* qp = prof + q_stripe[q] * kAlpha;
     const uint8_t* tp = t_seqs + t0;
     out[p] = qlen <= kShortRows
@@ -581,8 +582,7 @@ sw_pairs_kernel(const uint4* __restrict__ prof,        // [stripes][32] x 16 int
   const int qlen = has ? q_len[q] : 0;
   const int64_t t0 = has ? t_off[pair_t[p]] : 0;
   const int tlen = has ? static_cast<int>(t_off[pair_t[p] + 1] - t0) : 0;
-  const int64_t need = pair_need(qlen, tlen);
-  int2* scr = need ? scratch + (scr_end[i] - need - scr_base) : nullptr;
+  int2* scr = scratch + (has && i > 0 ? scr_end[i - 1] - scr_base : 0);
   const uint4* qp = prof + (has ? q_stripe[q] : 0) * kAlpha;
   const int slot = threadIdx.x / kTailLanes;
   const int best = tail_pair(qp, qlen, t_seqs + t0, tlen, scr, gap_open,
@@ -640,12 +640,21 @@ extern "C" int sw_pairs_keys_launch(const void* q_len, const void* t_off,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The pair-list entry's layout, for the host to check against its own
+// copy: out[0..4] = kStripe, kTailKey, kKeyLenBits, kShortRows, kLineCols.
+extern "C" void sw_pairs_layout(int* out) {
+  const int layout[] = {kStripe, kTailKey, kKeyLenBits, kShortRows,
+                        kLineCols};
+  for (int k = 0; k < 5; ++k) out[k] = layout[k];
+}
+
 // Launches the pair-list entry on `stream` for the n sorted positions of
 // `order` (the layouts in the kernel's parameter comments; the first n_tail
 // positions hold the tail pairs; t_seqs readable 8 bytes past the last
 // target) and returns cudaGetLastError() (0 = launched). The score of
-// position i lands at out[order[i]]. scr_end[i] - scr_base ends position
-// i's scratch line (of pair_need int2s) for every position that has one.
+// position i lands at out[order[i]]. Position i's scratch line (as long as
+// the key pass sized it) starts scr_end[i - 1] - scr_base int2s into
+// `scratch`, position 0's at its start.
 extern "C" int sw_pairs_launch(const void* prof, const void* q_stripe,
                                const void* q_len, const void* t_seqs,
                                const void* t_off, const void* pair_q,

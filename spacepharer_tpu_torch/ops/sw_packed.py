@@ -74,10 +74,12 @@ PAIR_CHUNK = 1 << 24  # pairs per sw_pairs call in device_pair_scores
 # 0.0859, 0.0857, 0.0854 ms at 256, 384, 512, 640 (7,699, 3,380, 1,774 and
 # 604 tail pairs): flat from 384 to 640, 512 in its middle
 PAIR_TAIL_WORK = 512
-LINE_COLS = 16        # a scratch line's length rounds up to this
-SHORT_ROWS = 12       # rows of the bulk's variant for short queries
+# the pair kernel's layout, as csrc/sw_allpairs.cu's sw_pairs_layout()
+# reports it (checked when the library is first used)
 TAIL_KEY = 1 << 14    # int16 sort-key bit of a tail pair
 KEY_LEN_BITS = 11     # a bulk key: stripes, > SHORT_ROWS rows, length
+SHORT_ROWS = 12       # rows of the bulk's variant for short queries
+LINE_COLS = 16        # a scratch line's length rounds up to this
 PROFILE_FLAG_LETTER = 2  # pair_profile.cu's flag bit: a letter >= alpha
 
 # kernel launches made by sw_allpairs, and the true DP cells (query
@@ -89,9 +91,11 @@ cells = 0
 # CUDA events recorded around its launches alone (the host work of the
 # wrapper left out)
 launch_events = None
-# the same two counts for sw_pairs, the pair-list entry
+# the same two counts for sw_pairs, the pair-list entry, and the launches
+# of its key pass (pair_keys)
 pair_launches = 0
 pair_cells = 0
+pair_key_launches = 0
 # kernel launches made by pair_profile (csrc/pair_profile.cu), and None or
 # a list to which each of them appends a (start, stop) pair of CUDA events
 # recorded around it
@@ -606,6 +610,26 @@ def sw_pairs_plain(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
     return out
 
 
+_pairs_lib = None
+
+
+def _pairs_library():
+    """csrc/sw_allpairs.cu's library, built if needed, once its stripe and
+    its pair layout were found equal to this module's constants."""
+    global _pairs_lib
+    if _pairs_lib is None:
+        from ._cuda import library
+        lib = library("sw_allpairs")
+        got = (ctypes.c_int * 5)()
+        lib.sw_pairs_layout(got)
+        want = (STRIPE, TAIL_KEY, KEY_LEN_BITS, SHORT_ROWS, LINE_COLS)
+        if tuple(got) != want:
+            raise RuntimeError(f"sw_pairs: the kernel's layout {tuple(got)} "
+                               f"disagrees with sw_packed's {want}")
+        _pairs_lib = lib
+    return _pairs_lib
+
+
 def pair_keys_plain(q_len, t_off, pair_q, pair_t, tail_work: int):
     """Plain PyTorch version of the pair kernel's key pass, on the inputs'
     device: (int16 [n] sort keys, int64 [n] scratch int2s, int64 [2]:
@@ -636,18 +660,19 @@ def pair_keys_plain(q_len, t_off, pair_q, pair_t, tail_work: int):
 def pair_keys(q_len, t_off, pair_q, pair_t, tail_work: int):
     """pair_keys_plain's (keys, needs, counts) for the pairs (inputs as
     sw_pairs takes them). On CUDA tensors this launches the key pass of
-    csrc/sw_allpairs.cu (the counts zeroed by its launcher) and raises if
-    it cannot be built or launched; on CPU tensors it runs
-    pair_keys_plain."""
+    csrc/sw_allpairs.cu (the counts zeroed by its launcher; one more in
+    pair_key_launches) and raises if it cannot be built or launched; on
+    CPU tensors it runs pair_keys_plain."""
+    global pair_key_launches
     dev = pair_q.device
     if dev.type == "cpu":
         return pair_keys_plain(q_len, t_off, pair_q, pair_t, tail_work)
-    from ._cuda import library
+    lib = _pairs_library()
     n = pair_q.numel()
     key = torch.empty(n, dtype=torch.int16, device=dev)
     need = torch.empty(n, dtype=torch.int64, device=dev)
     stats = torch.empty(2, dtype=torch.int64, device=dev)
-    err = library("sw_allpairs").sw_pairs_keys_launch(
+    err = lib.sw_pairs_keys_launch(
         ctypes.c_void_p(q_len.data_ptr()), ctypes.c_void_p(t_off.data_ptr()),
         ctypes.c_void_p(pair_q.data_ptr()),
         ctypes.c_void_p(pair_t.data_ptr()), ctypes.c_int(n),
@@ -657,6 +682,7 @@ def pair_keys(q_len, t_off, pair_q, pair_t, tail_work: int):
     if err != 0:
         raise RuntimeError(f"sw_pairs key pass launch failed: CUDA error "
                            f"{err}")
+    pair_key_launches += 1
     return key, need, stats
 
 
@@ -702,10 +728,7 @@ def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
     if t_seqs.numel() < int(t_off[-1]) + T_PAD:
         raise ValueError(f"sw_pairs: t_seqs must hold {T_PAD} bytes past "
                          "its last target")
-    from ._cuda import library
-    lib = library("sw_allpairs")
-    if lib.sw_allpairs_stripe() != STRIPE:
-        raise RuntimeError("sw_pairs: STRIPE disagrees with the kernel")
+    lib = _pairs_library()
     n = pair_q.numel()
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
@@ -720,7 +743,7 @@ def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
     if total <= budget:
         spans, bases, size = [(0, n)], [0], total
     else:
-        start = end - need[order]
+        start = torch.cat([end.new_zeros(1), end[:-1]])
         group = start // budget
         bounds = torch.searchsorted(
             group, torch.arange(int(group[-1]) + 2, device=dev)).tolist()

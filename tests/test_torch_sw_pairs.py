@@ -249,7 +249,7 @@ def test_pair_order_places_every_pair_once(case, split):
     assert sorted(order.tolist()) == list(range(n))
     q_lens = q_len.long()[pair_q.long()][order]
     t_lens = (t_off[1:] - t_off[:-1])[pair_t.long()][order]
-    stripes = (q_lens + 15) // 16
+    stripes = (q_lens + sw_packed.STRIPE - 1) // sw_packed.STRIPE
     work = stripes * t_lens
     n_tail, cells = stats.tolist()
     assert cells == int((q_lens * t_lens).sum())
@@ -257,13 +257,17 @@ def test_pair_order_places_every_pair_once(case, split):
     assert bool((work[n_tail:] < work_at).all())
     assert work[:n_tail].tolist() == sorted(work[:n_tail].tolist(),
                                             reverse=True)
+    bits = sw_packed.KEY_LEN_BITS
     short = (q_lens[n_tail:] > sw_packed.SHORT_ROWS).long()
-    bulk = (stripes[n_tail:].clamp(max=3) << 33 | short << 32
-            | t_lens[n_tail:].clamp(max=2047)).tolist()
+    bulk = (stripes[n_tail:].clamp(max=3) << bits + 1 | short << bits
+            | t_lens[n_tail:].clamp(max=(1 << bits) - 1)).tolist()
+    assert max(bulk, default=0) < sw_packed.TAIL_KEY
     assert bulk == sorted(bulk, reverse=True)
     if split == "default":
         assert 0 < n_tail < n or case != "long_targets"
-    lines = torch.where(q_lens > 16, (t_lens + 15) // 16 * 16, 0)
+    cols = sw_packed.LINE_COLS
+    lines = torch.where(q_lens > sw_packed.STRIPE,
+                        (t_lens + cols - 1) // cols * cols, 0)
     assert torch.equal(end, torch.cumsum(lines, 0))
     scored = sw_packed.sw_pairs_plain(prof, q_stripe, q_len, t_seqs, t_off,
                                       pair_q[order].contiguous(),
