@@ -200,10 +200,13 @@ KERNELS = {   # library name -> (source, the TPU kernel it replaces)
                           "spacepharer_tpu/ops/prefilter_dense.py:386"),
 }
 # the stream rebuild's three wrappers (ops/prefilter_dense.py), each a
-# kernel entry of the report: its name there, its launch counter
+# kernel entry of the report: its name there (and its launch counter's,
+# less "_launches"), its key in phase 4(b)'s results
 STREAM_KERNELS = (("prefilter_streams_ranks", "ranks"),
                   ("prefilter_streams_keys", "keys"),
                   ("prefilter_streams_runs", "runs"))
+# the spans of device_pair_scores's steps (the scoring step's split)
+PAIR_SPANS = ("pair_profile", "pair_upload", "pair_score", "pair_read_back")
 # the kernels of B1's pair-list entry, by _kernel_split's names: the key
 # pass and the kernel that scores the tail and the bulk in one launch
 PAIR_FUNCTIONS = ("pair_keys_kernel", "sw_pairs_kernel")
@@ -488,11 +491,19 @@ def _cli(argv):
     return cli.main(argv)
 
 
+def _since(before, *names):
+    """{name: the increase of the registry's total (logging.timings) since
+    the snapshot `before`} of each named counter or span."""
+    from spacepharer_tpu_torch.logging import timings
+    now = timings()
+    return {n: now.get(n, 0) - before.get(n, 0) for n in names}
+
+
 def phase2(golden, tmp):
-    from spacepharer_tpu_torch.ops import sw_packed
+    from spacepharer_tpu_torch.logging import timings
     out = os.path.join(tmp, "p2", "result.tsv")
     os.makedirs(os.path.dirname(out))
-    before = sw_packed.pair_launches
+    before = timings()
     t0 = time.perf_counter()
     rc = _cli(["predictmatch", _golden_query_path(golden),
                os.path.join(golden, "targets"),
@@ -503,7 +514,7 @@ def phase2(golden, tmp):
         raise AssertionError(f"phase2: predictmatch exited {rc}")
     with open(out) as fh, open(os.path.join(golden, "result.tsv")) as gh:
         same = fh.read() == gh.read()
-    n = sw_packed.pair_launches - before
+    n = _since(before, "sw_pairs_launches")["sw_pairs_launches"]
     print(f"phase2 golden via CLI --use-tpu 1: byte-identical={same}, "
           f"pair kernel launches {n}, wall {wall:.3f} s")
     if not same:
@@ -775,10 +786,7 @@ def phase3(golden, tmp, seed, clock_hz):
     sw_packed.sw_pairs = _kept
     sw_packed.pair_keys = _kept_keys
     sw_packed.pair_profile = _kept_profile
-    sw_packed.launches = sw_packed.cells = 0
-    sw_packed.pair_launches = sw_packed.pair_cells = 0
-    sw_packed.pair_key_launches = sw_packed.profile_launches = 0
-    sw_packed.pair_timing, sw_packed.launch_events = {}, []
+    sw_packed.launch_events = []
     before = timings()
     split = {}
     t0 = time.perf_counter()
@@ -793,14 +801,13 @@ def phase3(golden, tmp, seed, clock_hz):
         sw_packed.sw_pairs = pairs
         sw_packed.pair_keys = keys
         sw_packed.pair_profile = profile
-        pair_split, events = sw_packed.pair_timing, sw_packed.launch_events
-        sw_packed.pair_timing = sw_packed.launch_events = None
+        events, sw_packed.launch_events = sw_packed.launch_events, None
     gpu_wall = time.perf_counter() - t0
-    launches = {"sw_pairs": sw_packed.pair_launches,
-                "sw_pairs_keys": sw_packed.pair_key_launches,
-                "sw_allpairs": sw_packed.launches,
-                "pair_profile": sw_packed.profile_launches}
-    pair_cells = sw_packed.pair_cells
+    launches = {k[:-len("_launches")]: v for k, v in _since(
+        before, "sw_pairs_launches", "sw_pairs_keys_launches",
+        "sw_allpairs_launches", "pair_profile_launches").items()}
+    pair_cells = _since(before, "pair_cells")["pair_cells"]
+    pair_split = _since(before, *PAIR_SPANS)
     after = timings()
     if rc != 0:
         raise AssertionError(f"phase3 GPU run exited {rc}")
@@ -821,7 +828,9 @@ def phase3(golden, tmp, seed, clock_hz):
           f"{pair_cells}; launches {launches}; this process's torch "
           f"probe (s) {probe}")
     print("phase3 GPU engine " + _split_line(split))
-    print(f"phase3 GPU engine scoring step over both searches: "
+    print(f"phase3 GPU engine scoring step over both searches (the "
+          f"spans of device_pair_scores; each step ends when its work is "
+          f"enqueued, but the read-back, which waits for the card): "
           + ", ".join(f"{k} {v:.4f} s" for k, v in pair_split.items())
           + f"; CUDA events around each call's launches (host gaps "
           f"between them included) ms {kernel_ms}")
@@ -848,8 +857,9 @@ def phase3(golden, tmp, seed, clock_hz):
     print(f"phase3 bias step over both searches: host _query_bias_i8 "
           f"{split.get('bias', 0.0):.4f} s; the "
           f"query profiles with their bias on the card "
-          f"{pair_split.get('profile', 0.0):.4f} s (each ended by a "
-          f"synchronise); _search_tpu {split.get('_search_tpu', 0.0):.3f} s")
+          f"{pair_split['pair_profile']:.4f} s (enqueued, the profile "
+          f"kernel's range check read back); _search_tpu "
+          f"{split.get('_search_tpu', 0.0):.3f} s")
     if p_err:
         raise AssertionError("phase3: profile kernel output != plain")
     # every key pass of both searches: keys, scratch needs and counts
@@ -1836,8 +1846,6 @@ def phase4_predictmatch(p3, tmp):
         sort_events.append(ev)
         return out
 
-    pd.counts_launches = pd.emit_launches = pd.cells = 0
-    pd.ranks_launches = pd.keys_launches = pd.runs_launches = 0
     pd.sort_keys, pd.streams_events = _sort_timed, []
     before = timings()
     split = {}
@@ -1861,10 +1869,12 @@ def phase4_predictmatch(p3, tmp):
     finally:
         pd.sort_keys, pd.streams_events = sort_keys, None
     wall = time.perf_counter() - t0
-    launches = {"prefilter_dense_counts": pd.counts_launches,
-                "prefilter_dense_emit": pd.emit_launches}
-    for name, counter in STREAM_KERNELS:
-        launches[name] = getattr(pd, f"{counter}_launches")
+    launches = {k[:-len("_launches")]: v for k, v in _since(
+        before, "prefilter_dense_counts_launches",
+        "prefilter_dense_emit_launches",
+        *(f"{name}_launches" for name, _ in STREAM_KERNELS)).items()}
+    dense_cells = _since(before, "prefilter_dense_counts_cells")[
+        "prefilter_dense_counts_cells"]
     after = timings()
     if rc != 0:
         raise AssertionError(f"phase4 dense predictmatch exited {rc}")
@@ -1875,7 +1885,7 @@ def phase4_predictmatch(p3, tmp):
           f"{after.get('search', 0) - before.get('search', 0):.3f} s, then "
           f"search_rev "
           f"{after.get('search_rev', 0) - before.get('search_rev', 0):.3f} "
-          f"s); launches {launches}; dense cells on the card {pd.cells}; "
+          f"s); launches {launches}; dense cells on the card {dense_cells}; "
           f"text identical to the host engine's: {same}")
     dp = split.get("device_prefilter", 0.0)
     rebuild = split.get("stream rebuild", 0.0)
@@ -2128,13 +2138,13 @@ def phase5_production(dev, golden, p1, clock_hz):
 def phase5_golden(golden, tmp):
     """(c): the golden DBs through the CLI with --shards 2,4 (B4 per
     shard); the golden bytes."""
-    from spacepharer_tpu_torch.ops import sw_pallas as sp
+    from spacepharer_tpu_torch.logging import timings
     qpath = _golden_query_path(golden)
     with open(os.path.join(golden, "result.tsv")) as gh:
         want = gh.read()
     base = os.path.join(tmp, "p5", "2x4")
     os.makedirs(base)
-    before = sp.batch_launches
+    before = timings()
     t0 = time.perf_counter()
     rc = _cli(["predictmatch", qpath, os.path.join(golden, "targets"),
                os.path.join(golden, "targets_rev"),
@@ -2145,7 +2155,7 @@ def phase5_golden(golden, tmp):
         raise AssertionError(f"phase5 --shards 2,4: exited {rc}")
     with open(os.path.join(base, "result.tsv")) as fh:
         same = fh.read() == want
-    n = sp.batch_launches - before
+    n = _since(before, "sw_dense_batch_launches")["sw_dense_batch_launches"]
     print(f"phase5 golden via CLI --shards 2,4 --use-tpu 1: "
           f"byte-identical={same}, batch_launches {n}, wall {wall:.3f} s")
     if not same:
@@ -2188,14 +2198,15 @@ def _check_mesh_block(dev, block, seed):
     return err
 
 
-def phase5_corpus(dev, p3, tmp, seed):
+def phase5_corpus(dev, p3, tmp, seed, since):
     """(d): phase 3's corpus through the CLI with --shards 2,4 --use-tpu 1
     --prefilter-engine host in this process: its text must equal the
     host engine's. Times packing, shard scoring and the whole mesh
     scoring inside _search_tpu, and _search_tpu's four steps (bias,
     scoring, E-value screen, survivor alignment). CUDA is initialised,
     so both searches run here one after the other, as in phase 3's GPU
-    run."""
+    run. B4's and B3's launches and cells are printed over (c) and (d):
+    since the timings() snapshot `since`, taken before (c)."""
     import torch
     from spacepharer_tpu_torch.logging import timings
     from spacepharer_tpu_torch.ops import sw_pallas as sp
@@ -2256,6 +2267,8 @@ def phase5_corpus(dev, p3, tmp, seed):
         pm._search_tpu = search_tpu
     wall = time.perf_counter() - t0
     after = timings()
+    mesh = _since(since, "sw_dense_batch_launches",
+                  "sw_dense_one_query_launches", "sw_dense_cells")
     if rc != 0:
         raise AssertionError(f"phase5 mesh predictmatch exited {rc}")
     with open(out) as fh:
@@ -2273,8 +2286,9 @@ def phase5_corpus(dev, p3, tmp, seed):
           f"{spent['score']:.3f} s, the rest uploads, downloads and "
           f"padding), the rest {spent['search_tpu'] - spent['mesh']:.3f} "
           f"s; over (c) and "
-          f"(d): B4 launches {sp.batch_launches}, B3 launches "
-          f"{sp.one_query_launches}, true cells {sp.cells}; text "
+          f"(d): B4 launches {mesh['sw_dense_batch_launches']}, B3 "
+          f"launches {mesh['sw_dense_one_query_launches']}, true cells "
+          f"{mesh['sw_dense_cells']}; text "
           f"identical to the host engine's: {same}")
     print("phase5 mesh route " + _split_line(split))
     if not same:
@@ -2413,8 +2427,8 @@ def phase6(dev, golden, tmp, smi):
     the max errors of B2 counts and emit at the golden shape."""
     import torch
     from spacepharer_tpu_torch.io.setdb import SetDB
+    from spacepharer_tpu_torch.logging import timings
     from spacepharer_tpu_torch.ops import prefilter_dense as pd
-    from spacepharer_tpu_torch.ops import sw_packed
     t_phase = time.perf_counter()
     base = os.path.join(tmp, "p6")
     fa = os.path.join(base, "inputs")
@@ -2459,9 +2473,7 @@ def phase6(dev, golden, tmp, smi):
         for label, flags in (("use-tpu 1", ["--use-tpu", "1"]),
                              ("dense", ["--prefilter-engine", "device",
                                         "--use-tpu", "0"])):
-            before = (sw_packed.pair_launches, pd.counts_launches,
-                      pd.emit_launches, pd.ranks_launches, pd.keys_launches,
-                      pd.runs_launches)
+            before = timings()
             out_tsv = os.path.join(base, f"{label.replace(' ', '_')}.tsv")
             t0 = time.perf_counter()
             with contextlib.redirect_stderr(io.StringIO()):
@@ -2476,13 +2488,11 @@ def phase6(dev, golden, tmp, smi):
                                      f"{rc}")
             _same_bytes(out_tsv, gold, f"easy-predict {label}")
             launches[label] = {
-                name: now - was for name, now, was in zip(
-                    ("sw_pairs", "prefilter_dense_counts",
-                     "prefilter_dense_emit", *(n for n, _ in STREAM_KERNELS)),
-                    (sw_packed.pair_launches, pd.counts_launches,
-                     pd.emit_launches, pd.ranks_launches, pd.keys_launches,
-                     pd.runs_launches),
-                    before)}
+                k[:-len("_launches")]: v for k, v in _since(
+                    before, "sw_pairs_launches",
+                    "prefilter_dense_counts_launches",
+                    "prefilter_dense_emit_launches",
+                    *(f"{n}_launches" for n, _ in STREAM_KERNELS)).items()}
     finally:
         pd.match_pairs = match_pairs
     print(f"phase6 launches (easy-predict in this process; not in the "
@@ -2679,7 +2689,7 @@ def main():
           f"{clock_hz / 1e6:.0f} MHz")
     _build_all()
 
-    from spacepharer_tpu_torch.ops import sw_pallas
+    from spacepharer_tpu_torch.logging import timings
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         golden = _golden_dir(tmp)
@@ -2695,12 +2705,12 @@ def main():
         p5_errs = phase5_cases(dev)
         p5 = phase5_production(dev, golden, p1, clock_hz)
         # the slice's main path: the mesh route through the CLI
-        sw_pallas.batch_launches = sw_pallas.one_query_launches = 0
-        sw_pallas.cells = 0
+        p5_before = timings()
         phase5_golden(golden, tmp)
-        p5_block_err = phase5_corpus(dev, p3, tmp, args.seed)
-        p5_launches = {"sw_dense_one_query": sw_pallas.one_query_launches,
-                       "sw_dense_batch": sw_pallas.batch_launches}
+        p5_block_err = phase5_corpus(dev, p3, tmp, args.seed, p5_before)
+        p5_launches = {k[:-len("_launches")]: v for k, v in _since(
+            p5_before, "sw_dense_one_query_launches",
+            "sw_dense_batch_launches").items()}
         phase5_entry_points(golden, tmp)
         p6_errs = phase6(dev, golden, tmp, smi)
     print(f"chip_smoke: phases 0-6 in {time.perf_counter() - t_start:.1f} s")

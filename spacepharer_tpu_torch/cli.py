@@ -134,8 +134,11 @@ def _add_predict_flags(p):
                         "2 query shards x 4 target shards (output is "
                         "byte-identical for any mesh shape)")
     p.add_argument("--trace-dir", type=str, default=None,
-                   help="write a torch.profiler chrome trace of the search "
-                        "stage (view in chrome://tracing or Perfetto)")
+                   help="profile the whole predictmatch call and write "
+                        "predictmatch.trace.json (a torch.profiler chrome "
+                        "trace with the program's spans; chrome://tracing "
+                        "or Perfetto) and spans.json (each span's record "
+                        "on the trace's clock and the counters' totals)")
     p.add_argument("-v", "--verbosity", type=int, default=3,
                    help="0: quiet, 1: +errors, 2: +warnings, 3: +info")
     p.add_argument("--dump-stages", type=str, default=None,

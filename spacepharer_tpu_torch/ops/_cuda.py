@@ -5,6 +5,8 @@ with a plain C interface, at first use, into csrc/_build/<source hash>/.
 The build writes to a temporary name and os.replace()s it into place, so
 concurrent processes never load a half-written library and a changed
 source can never load a stale one. Nothing here runs at import time.
+A build runs in the span kernel_build and adds one to kernel_builds;
+upload() copies a host array to the card and counts its bytes.
 """
 import ctypes
 import hashlib
@@ -13,6 +15,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ..logging import count, span
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -53,8 +57,10 @@ def library(name: str) -> ctypes.CDLL:
         os.makedirs(out_dir, exist_ok=True)
         tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
+        with span("kernel_build"):
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                  capture_output=True, text=True)
+        count("kernel_builds")
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
         os.replace(tmp, lib_path)
@@ -63,3 +69,14 @@ def library(name: str) -> ctypes.CDLL:
     _libs[name] = ctypes.CDLL(lib_path)
     lib_paths[name] = lib_path
     return _libs[name]
+
+
+def upload(x, device):
+    """x (a numpy array or a tensor) on `device`; a copy from the host to
+    a card adds its bytes to the h2d_bytes counter."""
+    import torch
+    dev = torch.device(device)
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(x)
+    if dev.type == "cuda" and t.device.type == "cpu":
+        count("h2d_bytes", t.numel() * t.element_size())
+    return t.to(dev)

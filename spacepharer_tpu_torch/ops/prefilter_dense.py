@@ -51,6 +51,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..logging import count, span
+from ._cuda import upload
 from .bias import round_half_away
 
 X_IDX = 20
@@ -78,12 +80,11 @@ MAX_EMIT_HITS = 1 << 26
 # at least one tile of positions)
 PLAIN_MAX_ELEMS = 1 << 26
 
-# kernel launches made by the two wrappers, and the dense cells (query
-# k-mer rows x target positions) the counts kernel covered; the plain
-# CPU path counts in none of them
-counts_launches = 0
-emit_launches = 0
-cells = 0
+# The wrappers count their launches in the registry (logging.count):
+# prefilter_dense_counts_launches and prefilter_dense_emit_launches, and
+# in prefilter_dense_counts_cells the cells (query k-mer rows x target
+# positions) the counts kernel covered; the plain CPU path counts in none
+# of them.
 # None, or a list to which each counts or emit call appends a (start,
 # stop) pair of CUDA events recorded around its kernel launch alone (the
 # row compaction, the emit's run starts and its check left out)
@@ -480,7 +481,6 @@ def prefilter_dense_counts(qexp, thr, letters, tval, offsets,
     per query chunk) and launches csrc/prefilter_dense.cu, and raises if
     the kernel cannot be built or launched; on CPU tensors it runs
     prefilter_dense_counts_plain."""
-    global counts_launches, cells
     offs = pad_offsets(offsets)
     dev = qexp.device
     if dev.type == "cpu":
@@ -515,8 +515,8 @@ def prefilter_dense_counts(qexp, thr, letters, tval, offsets,
     if events is not None:
         events[1].record(stream)
         launch_events.append(events)
-    counts_launches += 1
-    cells += R * C
+    count("prefilter_dense_counts_launches")
+    count("prefilter_dense_counts_cells", R * C)
     return out
 
 
@@ -536,7 +536,6 @@ def prefilter_dense_emit(qexp, thr, letters, tval, offsets, tiles, base,
     exactly its count, and raises if the kernel cannot be built or
     launched or the check fails; on CPU tensors it runs
     prefilter_dense_emit_plain."""
-    global emit_launches
     offs = pad_offsets(offsets)
     dev = qexp.device
     if dev.type == "cpu":
@@ -588,7 +587,7 @@ def prefilter_dense_emit(qexp, thr, letters, tval, offsets, tiles, base,
     if events is not None:
         events[1].record(stream)
         launch_events.append(events)
-    emit_launches += 1
+    count("prefilter_dense_emit_launches")
     if not torch.equal(written, tile_counts):
         raise RuntimeError(f"prefilter_dense_emit: the tiles wrote "
                            f"{int(written.sum())} hits, the counts say "
@@ -626,11 +625,10 @@ def target_chunk(batch: QueryKmerBatch, t_flat: np.ndarray,
     bval = np.zeros(C, dtype=bool)
     bn = max(min(c0 + C, t_res) - c0, 0)
     bval[:bn] = t_bval[c0:c0 + bn]
-    letters_d = torch.from_numpy(letters).to(device)
-    diag21 = torch.from_numpy(
-        np.diag(seed_scores)[:21].astype(np.int32)).to(device)
-    return letters_d, prep(letters_d, torch.from_numpy(bval).to(device),
-                           diag21, tuple(int(o) for o in batch.offsets),
+    letters_d = upload(letters, device)
+    diag21 = upload(np.diag(seed_scores)[:21].astype(np.int32), device)
+    return letters_d, prep(letters_d, upload(bval, device), diag21,
+                           tuple(int(o) for o in batch.offsets),
                            int(kmer_thr))
 
 
@@ -644,8 +642,7 @@ def dense_inputs(batch: QueryKmerBatch, t_flat: np.ndarray,
     C = max(-(-len(t_flat) // TILE_T), 1) * TILE_T
     letters, tval = target_chunk(batch, t_flat, t_bval, seed_scores,
                                  kmer_thr, 0, C, device)
-    return (torch.from_numpy(qexp).to(device),
-            torch.from_numpy(thr).to(device), letters, tval,
+    return (upload(qexp, device), upload(thr, device), letters, tval,
             tuple(int(o) for o in batch.offsets))
 
 
@@ -678,9 +675,12 @@ def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
         raise ValueError("target letters must lie in [0, 20]")
     offsets = tuple(int(o) for o in batch.offsets)
     qexp_np, thr_np = build_qexp_i8(batch, seed_scores)
-    qexp = torch.from_numpy(qexp_np).to(dev)
-    thr = torch.from_numpy(thr_np).to(dev)
+    qexp = upload(qexp_np, dev)
+    thr = upload(thr_np, dev)
     nqt = qexp_np.shape[0] // TILE_Q
+    rows = int(np.count_nonzero(thr_np <= MAX_K))
+    count("dense_rows", rows)
+    count("dense_cells", rows * t_res)
     # the kernels' compacted rows, once for every target chunk
     compacted = compact_rows(qexp, thr) if dev.type == "cuda" else None
     # target chunk: MAX_TILES tiles, positions addressable in int32
@@ -688,22 +688,26 @@ def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
             max(-(-t_res // TILE_T), 1) * TILE_T)
     gis, gjs = [], []
     for c0 in range(0, t_res, C):
-        letters, tval = target_chunk(batch, t_flat, t_bval, seed_scores,
-                                     kmer_thr, c0, C, dev)
-        tiles, base, tc, _ = hit_tiles(prefilter_dense_counts(
-            qexp, thr, letters, tval, offsets, compacted))
-        base_np = base.cpu().numpy()
-        ends_np = base_np + tc.cpu().numpy()
+        with span("dense_target"):
+            letters, tval = target_chunk(batch, t_flat, t_bval, seed_scores,
+                                         kmer_thr, c0, C, dev)
+        with span("dense_counts"):
+            tiles, base, tc, total = hit_tiles(prefilter_dense_counts(
+                qexp, thr, letters, tval, offsets, compacted))
+            base_np = base.cpu().numpy()
+            ends_np = base_np + tc.cpu().numpy()
+        count("dense_hits", total)
         # one emit launch per run of hit tiles holding <= MAX_EMIT_HITS
         lo = 0
         while lo < len(ends_np):
             start = int(base_np[lo])
             hi = max(int(np.searchsorted(ends_np, start + MAX_EMIT_HITS,
                                          side="right")), lo + 1)
-            gi, gj = prefilter_dense_emit(
-                qexp, thr, letters, tval, offsets, tiles[lo:hi],
-                base[lo:hi] - start, tc[lo:hi],
-                int(ends_np[hi - 1]) - start, compacted)
+            with span("dense_emit"):
+                gi, gj = prefilter_dense_emit(
+                    qexp, thr, letters, tval, offsets, tiles[lo:hi],
+                    base[lo:hi] - start, tc[lo:hi],
+                    int(ends_np[hi - 1]) - start, compacted)
             gis.append(gi)
             gjs.append(gj.long() + c0)
             lo = hi
@@ -750,11 +754,9 @@ RANK_CHUNK = 2048
 # keys sort in two stable passes (target sequence, then the rest)
 KEY_BITS = 63
 
-# wrapper calls that launched their kernels (the plain versions count in
-# none of them)
-ranks_launches = 0
-keys_launches = 0
-runs_launches = 0
+# Each stream wrapper's calls that launched its kernels count in the
+# registry as prefilter_streams_{ranks,keys,runs}_launches (the plain
+# versions count in none of them).
 # None, or a list to which each stream wrapper's call appends (its name,
 # [(start, stop) CUDA events around each of its kernel launches])
 streams_events = None
@@ -924,7 +926,6 @@ def stream_rank_tables(q_flat, offsets, gi, n_rows: int, seed):
     launches rank_tables_kernel (one block of 256 threads per half); it
     raises if a kernel cannot be built or launched. On CPU tensors it
     runs stream_rank_tables_plain."""
-    global ranks_launches
     dev = gi.device
     if dev.type == "cpu":
         return stream_rank_tables_plain(q_flat, offsets, gi, n_rows, seed)
@@ -955,7 +956,7 @@ def stream_rank_tables(q_flat, offsets, gi, n_rows: int, seed):
                       ctypes.c_int(seed.shape[1]), _ptr(tables)))
     if streams_events is not None:
         streams_events.append(("ranks", ev))
-    ranks_launches += 1
+    count("prefilter_streams_ranks_launches")
     return slot_of, tables
 
 
@@ -970,7 +971,6 @@ def stream_keys(gi, gj, q_flat, offsets, n_rows: int, t_flat, t_starts,
     On CUDA tensors this launches csrc/prefilter_streams.cu's keys_kernel
     (one thread per hit) and raises if it cannot be built or launched; on
     CPU tensors it runs stream_keys_plain."""
-    global keys_launches
     dev = gi.device
     if dev.type == "cpu":
         return stream_keys_plain(gi, gj, q_flat, offsets, n_rows, t_flat,
@@ -1000,7 +1000,7 @@ def stream_keys(gi, gj, q_flat, offsets, n_rows: int, t_flat, t_starts,
                  _ptr(tpos), _ptr(bad))
     if streams_events is not None:
         streams_events.append(("keys", [ev]))
-    keys_launches += 1
+    count("prefilter_streams_keys_launches")
     return key, tseq, tpos, bad
 
 
@@ -1018,7 +1018,6 @@ def stream_runs(perm, key, tseq, tpos, gi, q_starts, n_keys: int,
     On CUDA tensors this launches csrc/prefilter_streams.cu's
     run_count_kernel and run_write_kernel and raises if they cannot be
     built or launched; on CPU tensors it runs stream_runs_plain."""
-    global runs_launches
     dev = perm.device
     if dev.type == "cpu":
         return stream_runs_plain(perm, key, tseq, tpos, gi, q_starts, n_keys)
@@ -1051,7 +1050,7 @@ def stream_runs(perm, key, tseq, tpos, gi, q_starts, n_keys: int,
                  _ptr(m_t), _ptr(m_d), _ptr(n_runs), _ptr(bounds))
     if streams_events is not None:
         streams_events.append(("runs", [ev]))
-    runs_launches += 1
+    count("prefilter_streams_runs_launches")
     return m_t, m_d, bounds, n_runs
 
 
@@ -1071,7 +1070,7 @@ def stream_inputs(batch: QueryKmerBatch, t_flat, t_starts, seed_scores,
               <= KEY_BITS)
 
     def put(x, dtype):     # a copy: the masked target may be read-only
-        return torch.from_numpy(np.array(x, dtype=dtype)).to(dev)
+        return upload(np.array(x, dtype=dtype), dev)
 
     return (put(batch.q_flat, np.uint8), offsets, put(t_flat, np.uint8),
             put(t_starts, np.int64), put(seed_scores, np.int32),
@@ -1102,6 +1101,7 @@ def rebuild_streams(batch: QueryKmerBatch, gi, gj, t_flat, t_starts,
                                            n_keys, sorted_key, seq_bits,
                                            narrow)
     n_bad, n = torch.cat([bad.long(), n_runs]).tolist()
+    count("stream_matches", n)
     if n_bad:
         raise RuntimeError(f"rebuild_streams: {n_bad} hits whose k-mer holds "
                            f"an X or runs past the target")
@@ -1242,23 +1242,32 @@ def device_prefilter_arrays(q_all, keys, bias80_all, t_flat_masked,
     versions on the CPU); one read-back per key chunk brings the flat
     streams to the host, and one threaded native call finalizes every
     key. Without the native library only the CPU route runs, key by key
-    (finalize_streams_plain)."""
+    (finalize_streams_plain).
+
+    Its steps run in the spans dense_target_valid (the positions whose
+    k-mer stays inside one ORF), dense_query_batch (the query batch, its
+    composition bias), dense_match (match_pairs: the target chunks'
+    upload in dense_target, the counts pass and its read-back in
+    dense_counts, the emit in dense_emit), dense_streams (the stream
+    rebuild and its read-back) and dense_finalize."""
     from ..native import get_lib
     t_flat_masked = np.ascontiguousarray(t_flat_masked, dtype=np.uint8)
     t_starts = np.asarray(t_starts, dtype=np.int64)
     if get_lib() is None and torch.device(device).type != "cpu":
         raise RuntimeError("the dense prefilter on a card needs the native "
                            "library (its batch finalize)")
-    t_bval = target_boundary_valid(t_starts, params.pattern_span)
     kmer_thr = params.kmer_threshold()
-    q_flat, q_starts = flat_keys(q_all, keys, np.uint8)
-    if bias80_all is None:
-        bias = composition_bias(q_flat, q_starts, seed_m,
-                                params.comp_bias_corr)
-        bias80_all = {k: bias[q_starts[i]:q_starts[i + 1]]
-                      for i, k in enumerate(keys)}
-    else:
-        bias = flat_keys(bias80_all, keys, np.float64)[0]
+    with span("dense_target_valid"):
+        t_bval = target_boundary_valid(t_starts, params.pattern_span)
+    with span("dense_query_batch"):
+        q_flat, q_starts = flat_keys(q_all, keys, np.uint8)
+        if bias80_all is None:
+            bias = composition_bias(q_flat, q_starts, seed_m,
+                                    params.comp_bias_corr)
+            bias80_all = {k: bias[q_starts[i]:q_starts[i + 1]]
+                          for i, k in enumerate(keys)}
+        else:
+            bias = flat_keys(bias80_all, keys, np.float64)[0]
 
     # query-side chunking: keys stream through the card in groups of at
     # most MAX_Q_ROWS residues (card memory, see MAX_Q_ROWS); per-key
@@ -1277,19 +1286,23 @@ def device_prefilter_arrays(q_all, keys, bias80_all, t_flat_masked,
 
     m_ts, m_ds, offs = [], [], [np.zeros(1, np.int64)]
     for kchunk in key_chunks:
-        batch = build_query_batch(q_all, kchunk, bias80_all, params)
-        gi, gj = match_pairs(batch, t_flat_masked, t_bval, seed_m.scores,
-                             kmer_thr, device=device)
-        m_t, m_d, bounds = rebuild_streams(batch, gi, gj, t_flat_masked,
-                                           t_starts, seed_m.scores)
+        with span("dense_query_batch"):
+            batch = build_query_batch(q_all, kchunk, bias80_all, params)
+        with span("dense_match"):
+            gi, gj = match_pairs(batch, t_flat_masked, t_bval,
+                                 seed_m.scores, kmer_thr, device=device)
+        with span("dense_streams"):
+            m_t, m_d, bounds = rebuild_streams(batch, gi, gj, t_flat_masked,
+                                               t_starts, seed_m.scores)
         offs.append(bounds[1:] + offs[-1][-1])
         m_ts.append(m_t)
         m_ds.append(m_d)
     finalize = finalize_streams if get_lib() is not None \
         else finalize_streams_plain
-    return finalize(np.concatenate(m_ts), np.concatenate(m_ds),
-                    np.concatenate(offs), q_flat, q_starts, bias,
-                    t_flat_masked, t_starts, params, ungapped_m)
+    with span("dense_finalize"):
+        return finalize(np.concatenate(m_ts), np.concatenate(m_ds),
+                        np.concatenate(offs), q_flat, q_starts, bias,
+                        t_flat_masked, t_starts, params, ungapped_m)
 
 
 def device_prefilter(q_all, keys, bias80_all, t_flat_masked, t_starts,

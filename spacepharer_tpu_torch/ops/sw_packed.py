@@ -52,10 +52,12 @@ query-length limit, so every query rides the kernel (the TPU path sent
 queries with bound >= 4096 or length > 2048 to the bucketed scan).
 """
 import ctypes
-import time
 
 import numpy as np
 import torch
+
+from ..logging import count, span
+from ._cuda import upload
 
 A_PAD = 32            # profile columns; letters 21..31 are pad
 PAD_LETTER = A_PAD - 1
@@ -82,29 +84,20 @@ SHORT_ROWS = 12       # rows of the bulk's variant for short queries
 LINE_COLS = 16        # a scratch line's length rounds up to this
 PROFILE_FLAG_LETTER = 2  # pair_profile.cu's flag bit: a letter >= alpha
 
-# kernel launches made by sw_allpairs, and the true DP cells (query
-# residues x target residues) they scored; the plain CPU path counts in
-# neither
-launches = 0
-cells = 0
+# The wrappers count in the registry (logging.count): sw_allpairs's
+# kernel launches in sw_allpairs_launches and the true DP cells (query
+# residues x target residues) they scored in sw_allpairs_cells; the same
+# two for sw_pairs, the pair-list entry, in sw_pairs_launches and
+# pair_cells, and the launches of its key pass (pair_keys) in
+# sw_pairs_keys_launches; pair_profile's launches (csrc/pair_profile.cu)
+# in pair_profile_launches. The plain CPU path counts in none of them.
 # None, or a list to which each kernel call appends a (start, stop) pair of
 # CUDA events recorded around its launches alone (the host work of the
 # wrapper left out)
 launch_events = None
-# the same two counts for sw_pairs, the pair-list entry, and the launches
-# of its key pass (pair_keys)
-pair_launches = 0
-pair_cells = 0
-pair_key_launches = 0
-# kernel launches made by pair_profile (csrc/pair_profile.cu), and None or
-# a list to which each of them appends a (start, stop) pair of CUDA events
-# recorded around it
-profile_launches = 0
+# None or a list to which each pair_profile launch appends a (start, stop)
+# pair of CUDA events recorded around it
 profile_events = None
-# None, or a dict to which device_pair_scores adds the host seconds of its
-# steps ("profile": the query profiles with their bias, "upload", "score",
-# "read-back"), each ended by a synchronise
-pair_timing = None
 
 
 def pack_queries(q_list, matrix_scores, bias_list=None):
@@ -246,7 +239,6 @@ def sw_allpairs(prof, q_off, t_seqs, t_off, t_len, gap_open: int = 16,
     On CUDA tensors this launches csrc/sw_allpairs.cu and raises if the
     kernel cannot be built or launched; on CPU tensors it runs
     sw_allpairs_plain."""
-    global launches, cells
     dev = prof.device
     if dev.type == "cpu":
         return sw_allpairs_plain(prof, q_off, t_seqs, t_off, t_len,
@@ -312,8 +304,8 @@ def sw_allpairs(prof, q_off, t_seqs, t_off, t_len, gap_open: int = 16,
         if err != 0:
             raise RuntimeError(f"sw_allpairs kernel launch failed: CUDA "
                                f"error {err}")
-        launches += 1
-        cells += int(q_lens[q0:q1].sum()) * t_cells
+        count("sw_allpairs_launches")
+        count("sw_allpairs_cells", int(q_lens[q0:q1].sum()) * t_cells)
     if events is not None:
         events[1].record(cur)
         launch_events.append(events)
@@ -372,8 +364,8 @@ def pack_pair_queries(q_list, matrix_scores, bias_list=None, device="cpu",
     q_stripe = np.zeros(len(q_list), dtype=np.int64)
     np.cumsum(n_str[:-1], out=q_stripe[1:])
     total = int(lens.sum())
-    q_stripe_d = torch.from_numpy(q_stripe).to(dev)
-    lens_d = torch.from_numpy(lens).to(dev)
+    q_stripe_d = upload(q_stripe, dev)
+    lens_d = upload(lens, dev)
     out = {"q_stripe": q_stripe_d, "q_len": lens_d.to(torch.int32)}
     qcat = (np.concatenate(q_list) if total else np.zeros(0, np.int64))
     if total and int(qcat.max()) >= matrix_scores.shape[1]:
@@ -385,25 +377,23 @@ def pack_pair_queries(q_list, matrix_scores, bias_list=None, device="cpu",
         tab = (np.zeros(matrix_scores.shape[1]) if expected is None
                else expected)
         out["prof"] = pair_profile(
-            torch.from_numpy(qcat.astype(np.uint8)).to(dev),
-            torch.from_numpy(q_off).to(dev), q_stripe_d, int(n_str.sum()),
-            torch.from_numpy(np.ascontiguousarray(
-                matrix_scores, dtype=np.int32)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(
-                tab, dtype=np.float64)).to(dev),
+            upload(qcat.astype(np.uint8), dev), upload(q_off, dev),
+            q_stripe_d, int(n_str.sum()),
+            upload(np.ascontiguousarray(matrix_scores, dtype=np.int32), dev),
+            upload(np.ascontiguousarray(tab, dtype=np.float64), dev),
             comp_bias=expected is not None)
         return out
     prof = torch.full((int(n_str.sum()) * A_PAD * STRIPE,), PROF8_NEG,
                       dtype=torch.int8, device=dev)
     if total:
-        qcat = torch.from_numpy(qcat).to(dev).long()
-        rows = torch.from_numpy(np.ascontiguousarray(
-            matrix_scores, dtype=np.int32)).to(dev)[qcat]
+        qcat = upload(qcat, dev).long()
+        rows = upload(np.ascontiguousarray(matrix_scores, dtype=np.int32),
+                      dev)[qcat]
         bcat = np.concatenate(bias_list)
         if len(bcat) != total:
             raise ValueError("pack_pair_queries: one bias per query "
                              "residue")
-        rows += torch.from_numpy(bcat.astype(np.int32)).to(dev)[:, None]
+        rows += upload(bcat.astype(np.int32), dev)[:, None]
         lo, hi = (int(v) for v in torch.aminmax(rows))
         if lo < -127 or hi > 127:
             raise ValueError("pack_pair_queries: profile scores must lie in "
@@ -480,7 +470,6 @@ def pair_profile(letters, q_off, q_stripe, n_stripes, scores, expected,
     on CPU tensors it runs pair_profile_plain. Raises ValueError where a
     profile value leaves [-127, 127], or, on a card, where a query letter
     lies outside the matrix's alphabet."""
-    global profile_launches
     dev = letters.device
     if dev.type == "cpu":
         prof, in_range = pair_profile_plain(letters, q_off, q_stripe,
@@ -528,7 +517,7 @@ def pair_profile(letters, q_off, q_stripe, n_stripes, scores, expected,
             if err != 0:
                 raise RuntimeError(f"pair_profile kernel launch failed: "
                                    f"CUDA error {err}")
-            profile_launches += 1
+            count("pair_profile_launches")
             if events is not None:
                 events[1].record(cur)
                 profile_events.append(events)
@@ -661,9 +650,8 @@ def pair_keys(q_len, t_off, pair_q, pair_t, tail_work: int):
     """pair_keys_plain's (keys, needs, counts) for the pairs (inputs as
     sw_pairs takes them). On CUDA tensors this launches the key pass of
     csrc/sw_allpairs.cu (the counts zeroed by its launcher; one more in
-    pair_key_launches) and raises if it cannot be built or launched; on
+    sw_pairs_keys_launches) and raises if it cannot be built or launched; on
     CPU tensors it runs pair_keys_plain."""
-    global pair_key_launches
     dev = pair_q.device
     if dev.type == "cpu":
         return pair_keys_plain(q_len, t_off, pair_q, pair_t, tail_work)
@@ -682,7 +670,7 @@ def pair_keys(q_len, t_off, pair_q, pair_t, tail_work: int):
     if err != 0:
         raise RuntimeError(f"sw_pairs key pass launch failed: CUDA error "
                            f"{err}")
-    pair_key_launches += 1
+    count("sw_pairs_keys_launches")
     return key, need, stats
 
 
@@ -706,7 +694,6 @@ def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
     bulk a thread a pair in one launch and writes each score at its
     pair's position; it raises if a kernel cannot be built or launched.
     On CPU tensors it runs sw_pairs_plain."""
-    global pair_launches, pair_cells
     dev = prof.device
     if dev.type == "cpu":
         return sw_pairs_plain(prof, q_stripe, q_len, t_seqs, t_off, pair_q,
@@ -777,24 +764,12 @@ def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
         if err != 0:
             raise RuntimeError(f"sw_pairs kernel launch failed: CUDA error "
                                f"{err}")
-        pair_launches += 1
+        count("sw_pairs_launches")
     if events is not None:
         events[1].record(cur)
         launch_events.append(events)
-    pair_cells += cells
+    count("pair_cells", cells)
     return out
-
-
-def _lap(timing, key, since, dev):
-    """Add the seconds since `since` to timing[key], after a synchronise
-    on a card; returns now. A no-op without timing."""
-    if timing is None:
-        return since
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    now = time.perf_counter()
-    timing[key] = timing.get(key, 0.0) + now - since
-    return now
 
 
 def device_pair_scores(q_list, biases, t_flat, t_off, cand_t, cand_off,
@@ -809,9 +784,11 @@ def device_pair_scores(q_list, biases, t_flat, t_off, cand_t, cand_off,
     pairs go in runs of at most PAIR_CHUNK, each scored by sw_pairs.
     biases: one int bias per residue of each query, or None; expected:
     None, or the matrix's expected-score table, with which the profile
-    build computes the composition bias itself (biases then None)."""
+    build computes the composition bias itself (biases then None). Its
+    steps run in the spans pair_profile, pair_upload, pair_score and
+    pair_read_back, none of which synchronises: a step's seconds are the
+    host's, up to the read-back, which waits for the card."""
     dev = torch.device(device)
-    timing = pair_timing
     n = len(cand_t)
     out = np.zeros(n, dtype=np.int64)
     if n == 0:
@@ -820,30 +797,28 @@ def device_pair_scores(q_list, biases, t_flat, t_off, cand_t, cand_off,
     if len(t_flat) and int(t_flat.max()) >= matrix_scores.shape[1]:
         raise ValueError("device_pair_scores: target letters must lie in "
                          "the matrix's alphabet")
-    lap = time.perf_counter()
-    qp = pack_pair_queries(q_list, matrix_scores, biases, dev, expected)
+    with span("pair_profile"):
+        qp = pack_pair_queries(q_list, matrix_scores, biases, dev, expected)
     prof, q_stripe, q_len = qp["prof"], qp["q_stripe"], qp["q_len"]
-    lap = _lap(timing, "profile", lap, dev)
-    t_seqs = torch.from_numpy(np.concatenate(
-        [t_flat, np.zeros(T_PAD, dtype=np.uint8)])).to(dev)
-    t_off_d = torch.from_numpy(np.ascontiguousarray(t_off,
-                                                    dtype=np.int64)).to(dev)
+    with span("pair_upload"):
+        t_seqs = upload(np.concatenate(
+            [t_flat, np.zeros(T_PAD, dtype=np.uint8)]), dev)
+        t_off_d = upload(np.ascontiguousarray(t_off, dtype=np.int64), dev)
     cand_off = np.asarray(cand_off, dtype=np.int64)
-    lap = _lap(timing, "upload", lap, dev)
     for p0 in range(0, n, PAIR_CHUNK):
         p1 = min(n, p0 + PAIR_CHUNK)
         k0 = int(np.searchsorted(cand_off, p0, side="right")) - 1
         k1 = int(np.searchsorted(cand_off, p1, side="left"))
         reps = (np.minimum(cand_off[k0 + 1:k1 + 1], p1)
                 - np.maximum(cand_off[k0:k1], p0))
-        pair_q = torch.from_numpy(np.repeat(
-            np.arange(k0, k1, dtype=np.int32), reps)).to(dev)
-        pair_t = torch.from_numpy(np.ascontiguousarray(
-            cand_t[p0:p1], dtype=np.int32)).to(dev)
-        lap = _lap(timing, "upload", lap, dev)
-        scores = sw_pairs(prof, q_stripe, q_len, t_seqs, t_off_d, pair_q,
-                          pair_t, gap_open, gap_extend)
-        lap = _lap(timing, "score", lap, dev)
-        out[p0:p1] = scores.cpu().numpy()
-        lap = _lap(timing, "read-back", lap, dev)
+        with span("pair_upload"):
+            pair_q = upload(np.repeat(np.arange(k0, k1, dtype=np.int32),
+                                      reps), dev)
+            pair_t = upload(np.ascontiguousarray(cand_t[p0:p1],
+                                                 dtype=np.int32), dev)
+        with span("pair_score"):
+            scores = sw_pairs(prof, q_stripe, q_len, t_seqs, t_off_d,
+                              pair_q, pair_t, gap_open, gap_extend)
+        with span("pair_read_back"):
+            out[p0:p1] = scores.cpu().numpy()
     return out

@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..logging import count
 from .sw_packed import T_ALIGN, pack_runs
 
 NEG = -(10 ** 6)
@@ -42,12 +43,11 @@ STRIPE = 16                 # query rows per register stripe (csrc/sw_dense.cu)
 SCRATCH_BYTES = 1 << 31     # stripe-boundary scratch per launch
 PLAIN_MAX_ELEMS = 1 << 26   # DP-state elements per target run (plain)
 
-# kernel launches made by the two wrappers, and the true DP cells (query
-# rows < q_len x target columns < t_len) they scored; the plain CPU path
-# counts in none of them
-one_query_launches = 0
-batch_launches = 0
-cells = 0
+# The two wrappers count their kernel launches in the registry
+# (logging.count) as sw_dense_one_query_launches and
+# sw_dense_batch_launches, and the true DP cells (query rows < q_len x
+# target columns < t_len) they scored in sw_dense_cells; the plain CPU
+# path counts in none of them.
 # None, or a list to which each kernel call appends a (start, stop) pair of
 # CUDA events recorded around its launches alone (packing and the host
 # work of the wrapper left out)
@@ -200,7 +200,6 @@ def _launch(q_prof, q_len, targets: PackedTargets, gap_open, gap_extend,
             one_query):
     """Checks, scratch slots and launches of csrc/sw_dense.cu; int32
     [Q, T] in the caller's order, on the inputs' card."""
-    global one_query_launches, batch_launches, cells
     dev = q_prof.device
     Q, LQ, A = q_prof.shape
     T = targets.order.numel()
@@ -259,11 +258,9 @@ def _launch(q_prof, q_len, targets: PackedTargets, gap_open, gap_extend,
         if err != 0:
             raise RuntimeError(f"sw_dense kernel launch failed: CUDA error "
                                f"{err}")
-        if one_query:
-            one_query_launches += 1
-        else:
-            batch_launches += 1
-        cells += int(lens[q0:q1].sum()) * targets.n_letters
+        count("sw_dense_one_query_launches" if one_query
+              else "sw_dense_batch_launches")
+        count("sw_dense_cells", int(lens[q0:q1].sum()) * targets.n_letters)
     if events is not None:
         events[1].record(stream)
         launch_events.append(events)

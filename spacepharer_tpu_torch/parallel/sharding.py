@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import sw_pallas
+from ..ops._cuda import upload
 
 
 @dataclass(frozen=True)
@@ -153,13 +154,13 @@ def _placer(alpha: int):
 
     def on(dev, key, x):
         if (dev, key) not in placed:
-            placed[(dev, key)] = x.to(dev).contiguous()
+            placed[(dev, key)] = upload(x, dev).contiguous()
         return placed[(dev, key)]
 
     def packed(dev, j, t_block, t_len_block):
         if (dev, ("tp", j)) not in placed:
             placed[(dev, ("tp", j))] = sw_pallas.pack_targets(
-                t_block.to(dev), t_len_block.to(dev), alpha)
+                upload(t_block, dev), upload(t_len_block, dev), alpha)
         return placed[(dev, ("tp", j))]
     return on, packed
 

@@ -22,7 +22,7 @@ from ..report.nuclaln import combine_prot_nucl, protein_aln_to_nucl
 from ..report.offsets import offset_alignments, truncate_best_hits
 from ..report.pam import find_pam
 from ..report.summarize import summarize_results
-from ..logging import log
+from ..logging import count, log, span
 from ..stats.aggregation import best_hit_per_set, combine_score, merge_results_by_set
 from ..stats.fdr import filter_match_by_fdr
 
@@ -180,7 +180,17 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
     queries at the next sensitivity (start_sens -> sensitivity), rows
     concatenate per query (mergedbs semantics), and queries reaching
     >= 2 alignments stop early. SpacePHARER's own operating point is
-    STEPS=1, which keeps the byte-parity path untouched."""
+    STEPS=1, which keeps the byte-parity path untouched.
+
+    Runs in the span search_setdbs, its stages in child spans
+    (target_orfs, query_prep, engine_choice, masked_target or
+    target_index, dense_pass or host_prefilter, host_align or
+    card_scoring, save_join, nucl_merge)."""
+    with span("search_setdbs"):
+        return _search_setdbs(query_db, target_db, params, keys)
+
+
+def _search_setdbs(query_db, target_db, params, keys):
     from dataclasses import replace
     from ..ops.prefilter import SimilarKmerEnumerator
 
@@ -204,27 +214,41 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
             active = [k for k in active if len(rows[k]) < 2]
             if not active:
                 break
-        return _nucl_merge(merged, query_db, target_db, params)
+        return _nucl_merged(merged, query_db, target_db, params)
 
-    t_flat, t_off = target_db.orf_aa_encoded()
-    t_aa = [t_flat[t_off[i]:t_off[i + 1]] for i in range(target_db.n_orfs)]
+    with span("target_orfs"):
+        with span("target_encode"):
+            t_flat, t_off = target_db.orf_aa_encoded()
+        with span("target_slices"):
+            t_aa = [t_flat[t_off[i]:t_off[i + 1]]
+                    for i in range(target_db.n_orfs)]
     t_res = int(t_off[-1])
     limit_b = params.prefilter.split_memory_limit << 20
     split_mode = bool(limit_b) and t_res * 16 > limit_b
 
-    m40 = load_matrix(params.align.matrix, 2.0)
-    seed_m = load_matrix(params.prefilter.seed_matrix, 8.0)
-    ungapped_m = load_matrix(params.prefilter.ungapped_matrix, 2.0)
-    enumerator = SimilarKmerEnumerator(seed_m.scores)
-    evaluer = EvalueComputer(
-        gumbel_params(params.align.matrix, params.align.gap_open,
-                      params.align.gap_extend),
-        t_res)
-
     from ..ops.bias import local_aa_bias_batch
+    from ..native import get_lib as _get_lib
 
-    q_flat, q_off = query_db.orf_aa_encoded()
-    q_all = [q_flat[q_off[k]:q_off[k + 1]] for k in range(query_db.n_orfs)]
+    with span("query_prep"):
+        m40 = load_matrix(params.align.matrix, 2.0)
+        seed_m = load_matrix(params.prefilter.seed_matrix, 8.0)
+        ungapped_m = load_matrix(params.prefilter.ungapped_matrix, 2.0)
+        enumerator = SimilarKmerEnumerator(seed_m.scores)
+        evaluer = EvalueComputer(
+            gumbel_params(params.align.matrix, params.align.gap_open,
+                          params.align.gap_extend),
+            t_res)
+        q_flat, q_off = query_db.orf_aa_encoded()
+        q_all = [q_flat[q_off[k]:q_off[k + 1]]
+                 for k in range(query_db.n_orfs)]
+        if keys is None:
+            keys = list(range(query_db.n_orfs))
+        use_batch = (_get_lib() is not None
+                     and params.prefilter.kmer_size == 6)
+        kmer_span = params.prefilter.pattern_span
+        nk_total = sum(max(len(q_all[k]) - kmer_span + 1, 0) for k in keys)
+        q_res_total = int(sum(len(q_all[k]) for k in keys))
+    count("query_kmers", nk_total)
 
     # Query bias is only materialized in Python for the engines that
     # need it host-side (dense device prefilter, per-query fallbacks);
@@ -240,129 +264,75 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
                 _bias_cache.append([np.zeros(len(q)) for q in q_all])
         return _bias_cache[0]
 
-    if keys is None:
-        keys = list(range(query_db.n_orfs))
+    with span("engine_choice"):
+        # prefilter engine choice (SURVEY 7.2 step 3). The dense device
+        # engine (ops/prefilter_dense.py) needs no postings index — only the
+        # tantan-masked flat target — so a fresh-index search skips the
+        # postings build (the dominant host cost at scale). Output is
+        # byte-identical either way; this is purely a performance routing.
+        pf_engine = params.prefilter.engine
+        use_dev_pf = False
+        if not split_mode:
+            if pf_engine == "device":
+                use_dev_pf = True
+            elif pf_engine == "auto" and params.use_tpu is False:
+                # --use-tpu 0 disables EVERY device engine, including the
+                # dense prefilter (and keeps forked control searches off
+                # the card)
+                use_dev_pf = False
+            elif pf_engine == "auto":
+                from ..ops.prefilter import persisted_index_exists
+                has_idx = bool(target_db.path) and persisted_index_exists(
+                    target_db.path, params.prefilter)
+                # shape gates first; the CUDA-initialising accelerator
+                # probe only runs when they pass (dense_prefilter_viable)
+                use_dev_pf = (dense_prefilter_viable(nk_total, t_res, has_idx)
+                              and _accelerator_present())
 
-    from ..native import get_lib as _get_lib
-    use_batch = (_get_lib() is not None
-                 and params.prefilter.kmer_size == 6)
+        # Scoring engine choice. The accelerator pays a fixed in-process
+        # cost (runtime init + compiled-kernel load, seconds) plus
+        # per-dispatch packing; the host C aligner runs ~4e9 DP cells/s/
+        # core. The real alignment workload is set by the PREFILTER OUTPUT,
+        # not by |queries| x |DB| (the reference's own design premise: the
+        # prefilter exists to make alignment output-sensitive,
+        # Prefiltering.cpp:709-897). So: a cheap a-priori ceiling
+        # (every query hitting max_seqs average-length candidates) gates a
+        # two-phase path — prefilter first, then decide with exact
+        # candidate cells — while small workloads keep the fused
+        # prefilter+align path with no second fork.
+        avg_t = t_res / max(len(t_aa), 1)
+        cells_ceiling = (q_res_total
+                         * min(params.prefilter.max_seqs, len(t_aa)) * avg_t)
+        use_tpu = params.use_tpu
 
-    # prefilter engine choice (SURVEY 7.2 step 3). The dense device
-    # engine (ops/prefilter_dense.py) needs no postings index — only the
-    # tantan-masked flat target — so a fresh-index search skips the
-    # postings build (the dominant host cost at scale). Output is
-    # byte-identical either way; this is purely a performance routing.
-    span = params.prefilter.pattern_span
-    nk_total = sum(max(len(q_all[k]) - span + 1, 0) for k in keys)
-    pf_engine = params.prefilter.engine
-    use_dev_pf = False
-    if not split_mode:
-        if pf_engine == "device":
-            use_dev_pf = True
-        elif pf_engine == "auto" and params.use_tpu is False:
-            # --use-tpu 0 disables EVERY device engine, including the
-            # dense prefilter (and keeps forked control searches off
-            # the card)
-            use_dev_pf = False
-        elif pf_engine == "auto":
-            from ..ops.prefilter import persisted_index_exists
-            has_idx = bool(target_db.path) and persisted_index_exists(
-                target_db.path, params.prefilter)
-            # shape gates first; the CUDA-initialising accelerator
-            # probe only runs when they pass (dense_prefilter_viable)
-            use_dev_pf = (dense_prefilter_viable(nk_total, t_res, has_idx)
-                          and _accelerator_present())
-
-    # Scoring engine choice. The accelerator pays a fixed in-process
-    # cost (runtime init + compiled-kernel load, seconds) plus
-    # per-dispatch packing; the host C aligner runs ~4e9 DP cells/s/
-    # core. The real alignment workload is set by the PREFILTER OUTPUT,
-    # not by |queries| x |DB| (the reference's own design premise: the
-    # prefilter exists to make alignment output-sensitive,
-    # Prefiltering.cpp:709-897). So: a cheap a-priori ceiling
-    # (every query hitting max_seqs average-length candidates) gates a
-    # two-phase path — prefilter first, then decide with exact
-    # candidate cells — while small workloads keep the fused
-    # prefilter+align path with no second fork.
-    q_res_total = int(sum(len(q_all[k]) for k in keys))
-    avg_t = t_res / max(len(t_aa), 1)
-    cells_ceiling = (q_res_total
-                     * min(params.prefilter.max_seqs, len(t_aa)) * avg_t)
-    use_tpu = params.use_tpu
-
-    batched_aln_ok = (params.align.max_accept == INT_MAX
-                      and params.align.max_rejected == INT_MAX
-                      and params.align.cov_thr == 0
-                      and params.align.seq_id_thr == 0
-                      and params.align.aln_len_thr == 0)
-    # A search that could go to a device engine imports torch, probes
-    # for a card and creates its CUDA context on a thread while the host
-    # builds its index and walks (the native walk releases the GIL):
-    # only on the batch route with batched alignment, where no fork
-    # follows the walk in this search (_run_keyed and
-    # _fork_reverse_search also wait for the thread before they fork).
-    if (use_batch and batched_aln_ok and not use_dev_pf and not split_mode
-            and use_tpu is not False
-            and (use_tpu or params.mesh is not None
-                 or cells_ceiling > _DEVICE_CELLS_THRESHOLD)):
-        _start_torch_probe()
+        batched_aln_ok = (params.align.max_accept == INT_MAX
+                          and params.align.max_rejected == INT_MAX
+                          and params.align.cov_thr == 0
+                          and params.align.seq_id_thr == 0
+                          and params.align.aln_len_thr == 0)
+        # A search that could go to a device engine imports torch, probes
+        # for a card and creates its CUDA context on a thread while the host
+        # builds its index and walks (the native walk releases the GIL):
+        # only on the batch route with batched alignment, where no fork
+        # follows the walk in this search (_run_keyed and
+        # _fork_reverse_search also wait for the thread before they fork).
+        if (use_batch and batched_aln_ok and not use_dev_pf and not split_mode
+                and use_tpu is not False
+                and (use_tpu or params.mesh is not None
+                     or cells_ceiling > _DEVICE_CELLS_THRESHOLD)):
+            _start_torch_probe()
 
     index = None
     save_thread = None
     masked = None
     if use_dev_pf:
-        from ..ops.prefilter import (build_masked_flat, load_masked_flat,
-                                     save_masked_flat)
-        if target_db.path:
-            masked = load_masked_flat(target_db.path, params.prefilter)
-            if masked is not None:
-                log(2, f"using persisted masked target in {target_db.path}")
-        if masked is None:
-            masked = build_masked_flat(t_aa, params.prefilter,
-                                       packed=(t_flat, t_off))
-            if target_db.path and os.access(target_db.path, os.W_OK):
-                import threading
-                mflat, mstarts = masked
-
-                def _save_mask():
-                    try:
-                        save_masked_flat(mflat, mstarts, target_db.path,
-                                         params.prefilter)
-                        log(2, f"persisted masked target into "
-                               f"{target_db.path}")
-                    except OSError:
-                        pass
-                save_thread = threading.Thread(target=_save_mask,
-                                               daemon=False)
-                save_thread.start()
+        with span("masked_target"):
+            masked, save_thread = _masked_target(t_aa, (t_flat, t_off),
+                                                 target_db, params)
     elif not split_mode:
-        if target_db.path:
-            from ..ops.prefilter import load_target_index
-            index = load_target_index(target_db.path, params.prefilter)
-            if index is not None:
-                log(2, f"using persisted index in {target_db.path}")
-        if index is None:
-            index = build_target_index(t_aa, params.prefilter,
-                                       packed=(t_flat, t_off))
-            if target_db.path and os.access(target_db.path, os.W_OK):
-                # auto-createindex: persist the freshly built index so
-                # every later search of this SetDB mmap-loads it (the
-                # reference pays IndexBuilder per prefilter run unless
-                # the user runs createindex, Prefiltering.cpp:734; here
-                # first use = once). The ~200 MB of .npy writes ride a
-                # background thread (joined before return).
-                import threading
-                from ..ops.prefilter import save_target_index
-
-                def _save():
-                    try:
-                        save_target_index(index, target_db.path,
-                                          params.prefilter)
-                        log(2, f"persisted index into {target_db.path}")
-                    except OSError:
-                        pass
-                save_thread = threading.Thread(target=_save, daemon=False)
-                save_thread.start()
+        with span("target_index"):
+            index, save_thread = _target_index(t_aa, (t_flat, t_off),
+                                               target_db, params)
 
     def _one_query(qkey):
         q = q_all[qkey]
@@ -432,7 +402,7 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
                f"(limit {params.prefilter.split_memory_limit} MB)")
         prot = _search_split(t_aa, (t_flat, t_off), params, m40,
                              enumerator, evaluer, _get_bias80(), q_all, keys)
-        return _nucl_merge(prot, query_db, target_db, params)
+        return _nucl_merged(prot, query_db, target_db, params)
 
     def _device_engage(cells):
         return device_scoring_engages(use_tpu, params.mesh, cells)
@@ -458,38 +428,47 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
             device = params.device
             log(2, f"dense device prefilter ({device}): "
                    f"{nk_total} k-mers x {t_res} target residues")
-            ct, _, _, co = device_prefilter_arrays(
-                q_all, keys, None, masked[0], masked[1],
-                params.prefilter, seed_m, ungapped_m, device=device)
+            with span("dense_pass"):
+                ct, _, _, co = device_prefilter_arrays(
+                    q_all, keys, None, masked[0], masked[1],
+                    params.prefilter, seed_m, ungapped_m, device=device)
             cand_chunks = []
             for lo in range(0, len(keys), _BATCH_CHUNK):
                 hi = min(lo + _BATCH_CHUNK, len(keys))
                 cand_chunks.append((keys[lo:hi], ct[co[lo]:co[hi]],
                                     co[lo:hi + 1] - co[lo]))
         elif use_batch:
-            cand_chunks = _prefilter_batch_keys()
+            with span("host_prefilter"):
+                cand_chunks = _prefilter_batch_keys()
         else:
-            cand_chunks = _keyed_chunks(keys, _run_keyed(
-                _prefilter_one, keys, n_threads, len(keys) * t_res > 2e10,
-                label="prefilter "))
-        # exact candidate DP cells, vectorized over the pair arrays
-        q_lens = np.diff(q_off)
-        t_lens = np.diff(t_off)
-        cells = 0
-        for chunk, ct, co in cand_chunks:
-            if len(ct) == 0:
-                continue
-            qlen_pair = np.repeat(q_lens[np.asarray(chunk)], np.diff(co))
-            cells += int(np.dot(qlen_pair, t_lens[ct]))
-        engage = _device_engage(cells)
+            with span("host_prefilter"):
+                cand_chunks = _keyed_chunks(keys, _run_keyed(
+                    _prefilter_one, keys, n_threads,
+                    len(keys) * t_res > 2e10, label="prefilter "))
+        with span("engine_choice"):
+            # exact candidate DP cells, vectorized over the pair arrays
+            q_lens = np.diff(q_off)
+            t_lens = np.diff(t_off)
+            cells = 0
+            for chunk, ct, co in cand_chunks:
+                if len(ct) == 0:
+                    continue
+                qlen_pair = np.repeat(q_lens[np.asarray(chunk)],
+                                      np.diff(co))
+                cells += int(np.dot(qlen_pair, t_lens[ct]))
+            engage = _device_engage(cells)
+        count("candidate_pairs", sum(len(ct) for _, ct, _ in cand_chunks))
+        count("candidate_cells", cells)
         log(2, f"candidate cells {cells} -> "
                f"{'device' if engage else 'host'} scoring engine")
         if engage:
-            prot = _search_tpu(keys, t_aa, (t_flat, t_off),
-                               _joined_chunks(cand_chunks), q_all, m40,
-                               evaluer, params)
+            with span("card_scoring"):
+                prot = _search_tpu(keys, t_aa, (t_flat, t_off),
+                                   _joined_chunks(cand_chunks), q_all, m40,
+                                   evaluer, params)
         elif batched_aln_ok:
-            prot = _align_batch_chunks(cand_chunks)
+            with span("host_align"):
+                prot = _align_batch_chunks(cand_chunks)
         else:
             # per-key target lists for the per-query acceptance rules
             cand = {}
@@ -501,15 +480,81 @@ def search_setdbs(query_db: SetDB, target_db: SetDB,
                 results = align_query(q_all[qkey], cand[qkey], t_aa, m40,
                                       params.align, evaluer)
                 return [r.row_fields() for r in results]
-            prot = _run_keyed(_align_one, keys, n_threads, cells > 2e10,
-                              label="align ")
+            with span("host_align"):
+                prot = _run_keyed(_align_one, keys, n_threads, cells > 2e10,
+                                  label="align ")
     else:
-        prot = _run_keyed(_one_query, keys, n_threads,
-                          len(keys) * t_res > 2e10, label="search ")
+        # prefilter and alignment query by query
+        with span("host_search"):
+            prot = _run_keyed(_one_query, keys, n_threads,
+                              len(keys) * t_res > 2e10, label="search ")
 
     if save_thread is not None:
-        save_thread.join()
-    return _nucl_merge(prot, query_db, target_db, params)
+        with span("save_join"):
+            save_thread.join()
+    return _nucl_merged(prot, query_db, target_db, params)
+
+
+def _masked_target(t_aa, packed, target_db, params):
+    """(masked, save_thread): the tantan-masked flat target the dense
+    prefilter reads, loaded from the SetDB when persisted, else built and
+    persisted on a thread (None when nothing is written; the search
+    joins it before it returns)."""
+    from ..ops.prefilter import (build_masked_flat, load_masked_flat,
+                                 save_masked_flat)
+    if target_db.path:
+        masked = load_masked_flat(target_db.path, params.prefilter)
+        if masked is not None:
+            log(2, f"using persisted masked target in {target_db.path}")
+            return masked, None
+    masked = build_masked_flat(t_aa, params.prefilter, packed=packed)
+    if not (target_db.path and os.access(target_db.path, os.W_OK)):
+        return masked, None
+    import threading
+    mflat, mstarts = masked
+
+    def _save_mask():
+        try:
+            save_masked_flat(mflat, mstarts, target_db.path,
+                             params.prefilter)
+            log(2, f"persisted masked target into {target_db.path}")
+        except OSError:
+            pass
+    save_thread = threading.Thread(target=_save_mask, daemon=False)
+    save_thread.start()
+    return masked, save_thread
+
+
+def _target_index(t_aa, packed, target_db, params):
+    """(index, save_thread): the host walk's postings index, loaded from
+    the SetDB when persisted, else built and persisted on a thread (None
+    when nothing is written; the search joins it before it returns)."""
+    if target_db.path:
+        from ..ops.prefilter import load_target_index
+        index = load_target_index(target_db.path, params.prefilter)
+        if index is not None:
+            log(2, f"using persisted index in {target_db.path}")
+            return index, None
+    index = build_target_index(t_aa, params.prefilter, packed=packed)
+    if not (target_db.path and os.access(target_db.path, os.W_OK)):
+        return index, None
+    # auto-createindex: persist the freshly built index so every later
+    # search of this SetDB mmap-loads it (the reference pays IndexBuilder
+    # per prefilter run unless the user runs createindex,
+    # Prefiltering.cpp:734; here first use = once). The ~200 MB of .npy
+    # writes ride a background thread (joined before return).
+    import threading
+    from ..ops.prefilter import save_target_index
+
+    def _save():
+        try:
+            save_target_index(index, target_db.path, params.prefilter)
+            log(2, f"persisted index into {target_db.path}")
+        except OSError:
+            pass
+    save_thread = threading.Thread(target=_save, daemon=False)
+    save_thread.start()
+    return index, save_thread
 
 
 # Exact candidate DP cells above which `auto` sends a search on a card to
@@ -584,6 +629,17 @@ def _run_keyed(fn, keys, n_threads, big: bool, label=None) -> dict:
     return out
 
 
+def _nucl_merged(prot: dict, query_db: SetDB, target_db: SetDB,
+                 params: PredictParams) -> dict:
+    """_nucl_merge in the span nucl_merge, the rows it takes counted in
+    protein_rows and those it returns in result_rows."""
+    count("protein_rows", sum(len(rows) for rows in prot.values()))
+    with span("nucl_merge"):
+        out = _nucl_merge(prot, query_db, target_db, params)
+    count("result_rows", sum(len(rows) for rows in out.values()))
+    return out
+
+
 def _nucl_merge(prot: dict, query_db: SetDB, target_db: SetDB,
                 params: PredictParams) -> dict:
     """Optional nucleotide re-alignment merge (proteinaln2nucl +
@@ -593,17 +649,21 @@ def _nucl_merge(prot: dict, query_db: SetDB, target_db: SetDB,
 
     # nucl sequences only for queries that HAVE rows (at catalog scale
     # almost all queries have none; gathering all 10^5+ is pure waste)
-    q_nucl = query_db.orf_nucl_batch(
-        [k for k, rows in prot.items() if rows])
-    t_nucl = target_db.orf_nucl_batch(
-        {int(r[0]) for rows in prot.values() for r in rows})
-    nucl_ev = EvalueComputer(
-        gumbel_params("nucleotide.out", params.nucl_gap_open,
-                      params.nucl_gap_extend),
-        int(np.diff(target_db.orf_nucl_offsets).sum()))
-    nucl = protein_aln_to_nucl(prot, q_nucl, t_nucl, nucl_ev,
-                               params.nucl_gap_open, params.nucl_gap_extend)
-    return combine_prot_nucl(prot, nucl)
+    with span("nucl_gather"):
+        q_nucl = query_db.orf_nucl_batch(
+            [k for k, rows in prot.items() if rows])
+        t_nucl = target_db.orf_nucl_batch(
+            {int(r[0]) for rows in prot.values() for r in rows})
+        nucl_ev = EvalueComputer(
+            gumbel_params("nucleotide.out", params.nucl_gap_open,
+                          params.nucl_gap_extend),
+            int(np.diff(target_db.orf_nucl_offsets).sum()))
+    with span("nucl_align"):
+        nucl = protein_aln_to_nucl(prot, q_nucl, t_nucl, nucl_ev,
+                                   params.nucl_gap_open,
+                                   params.nucl_gap_extend)
+    with span("nucl_combine"):
+        return combine_prot_nucl(prot, nucl)
 
 
 def _search_split(t_aa, packed, params, m40, enumerator, evaluer,
@@ -714,7 +774,8 @@ def _join_torch_probe() -> float:
         return 0.0
     import time
     t0 = time.perf_counter()
-    _torch_probe[0].join()
+    with span("torch_probe_wait"):
+        _torch_probe[0].join()
     return time.perf_counter() - t0
 
 
@@ -870,6 +931,9 @@ def _candidate_scores(q_list, t_aa, cand_t, cand_off, biases, m40,
         # CPU when the caller asked for it
         mesh = make_mesh(*params.mesh, devices=(
             ["cpu"] if params.device == "cpu" else None))
+    t_lens = (np.diff(t_packed[1]) if t_packed is not None
+              else np.fromiter((len(t) for t in t_aa), dtype=np.int64,
+                               count=len(t_aa)))
     for k0, k1 in _key_blocks(cand_t, cand_off, _MAX_MATRIX_CELLS):
         p0, p1 = int(cand_off[k0]), int(cand_off[k1])
         if p0 == p1:
@@ -881,16 +945,22 @@ def _candidate_scores(q_list, t_aa, cand_t, cand_off, biases, m40,
         if mesh is not None:
             # kernel B4 per shard; scores come back as numpy
             from ..parallel.sharding import sharded_allpairs_scores
-            scores = sharded_allpairs_scores(
-                mesh, q_blk, [t_aa[t] for t in union.tolist()], m40.scores,
-                bias_list=b_blk, gap_open=go, gap_extend=ge)
+            with span("pair_score"):
+                scores = sharded_allpairs_scores(
+                    mesh, q_blk, [t_aa[t] for t in union.tolist()],
+                    m40.scores, bias_list=b_blk, gap_open=go, gap_extend=ge)
             out[p0:p1] = scores[rows, cols]
         else:
             # asked for the CPU: the bucketed torch scan, pair by pair
             from ..ops.sw_tpu import score_pairs_bucketed
-            out[p0:p1] = score_pairs_bucketed(
-                list(zip(rows.tolist(), cand_t[p0:p1].tolist())), q_blk,
-                t_aa, m40.scores, b_blk, go, ge, device="cpu")
+            q_lens = np.fromiter((len(q) for q in q_blk), dtype=np.int64,
+                                 count=len(q_blk))
+            count("pair_cells", int(np.dot(q_lens[rows],
+                                           t_lens[cand_t[p0:p1]])))
+            with span("pair_score"):
+                out[p0:p1] = score_pairs_bucketed(
+                    list(zip(rows.tolist(), cand_t[p0:p1].tolist())),
+                    q_blk, t_aa, m40.scores, b_blk, go, ge, device="cpu")
     return out
 
 
@@ -963,9 +1033,13 @@ def _search_tpu(keys, t_aa, t_packed, cand_arrays, q_all, m40, evaluer,
     if batched:
         q_lens = np.fromiter((len(q) for q in q_list), dtype=np.int64,
                              count=len(q_list))
-        keep = _evalue_screen(scores, q_lens, cand_off, evaluer, a.evalue)
-        return _align_survivors(keys, q_list, t_packed, cand_t, cand_off,
-                                keep, m40, evaluer, params)
+        with span("evalue_screen"):
+            keep = _evalue_screen(scores, q_lens, cand_off, evaluer,
+                                  a.evalue)
+        count("survivors", int(np.count_nonzero(keep)))
+        with span("survivor_align"):
+            return _align_survivors(keys, q_list, t_packed, cand_t,
+                                    cand_off, keep, m40, evaluer, params)
 
     row_of = {k: i for i, k in enumerate(keys)}
 
@@ -1057,34 +1131,52 @@ def _fork_reverse_search(cache, query_db, control_db, params):
 
 
 def _aggregate_chain(result: dict, query_db: SetDB, target_db: SetDB):
-    """besthitperset -> mergeresultsbyset -> combinescore."""
+    """besthitperset -> mergeresultsbyset -> combinescore, in the span
+    aggregation."""
+    with span("aggregation"):
+        return _aggregate(result, query_db, target_db)
+
+
+def _aggregate(result, query_db, target_db):
     t_m2s = target_db.orf_to_set
     t_sizes = target_db.set_size
-    aggregate = {k: (best_hit_per_set(rows, t_m2s, t_sizes) if rows
-                     else [])
-                 for k, rows in result.items()}
-    q_m2s = query_db.orf_to_set
-    set_to_members = {}
-    for okey in range(query_db.n_orfs):
-        set_to_members.setdefault(int(q_m2s[okey]), []).append(okey)
-    merged = merge_results_by_set(aggregate, dict(sorted(set_to_members.items())))
-    cscore = {qset: combine_score(rows, int(query_db.set_size[qset]), t_m2s)
-              for qset, rows in merged.items()}
+    with span("besthitperset"):
+        aggregate = {k: (best_hit_per_set(rows, t_m2s, t_sizes) if rows
+                         else [])
+                     for k, rows in result.items()}
+    with span("mergeresultsbyset"):
+        q_m2s = query_db.orf_to_set
+        set_to_members = {}
+        for okey in range(query_db.n_orfs):
+            set_to_members.setdefault(int(q_m2s[okey]), []).append(okey)
+        merged = merge_results_by_set(aggregate,
+                                      dict(sorted(set_to_members.items())))
+    with span("combinescore"):
+        cscore = {qset: combine_score(rows, int(query_db.set_size[qset]),
+                                      t_m2s)
+                  for qset, rows in merged.items()}
     return aggregate, merged, cscore
 
 
 @contextlib.contextmanager
-def _torch_trace(trace_dir: str):
-    """torch.profiler over the search stage (CPU, plus CUDA when a GPU is
-    attached); writes <trace_dir>/search.trace.json."""
+def _traced_call(trace_dir: str):
+    """torch.profiler over the block (CPU, plus CUDA when a GPU is
+    attached) with the program's spans recorded (logging.recording);
+    writes <trace_dir>/predictmatch.trace.json, the chrome trace, and
+    <trace_dir>/spans.json, every span's record on the trace's clock and
+    the counters' totals over the block."""
     import torch
+    from ..logging import recording
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof, \
+            recording() as rec:
         yield
-    prof.export_chrome_trace(os.path.join(trace_dir, "search.trace.json"))
+    trace = os.path.join(trace_dir, "predictmatch.trace.json")
+    prof.export_chrome_trace(trace)
+    rec.write(os.path.join(trace_dir, "spans.json"), trace)
 
 
 @dataclass
@@ -1105,15 +1197,22 @@ def predict_match(query_db: SetDB, target_db: SetDB, control_db: SetDB,
                   params: Optional[PredictParams] = None,
                   taxonomy=None, cache=None,
                   dump_stages: Optional[str] = None) -> PredictResult:
+    """The whole call, in the span predict_match; with params.trace_dir,
+    profiled and its spans recorded (_traced_call)."""
+    params = params or PredictParams()
+    traced = (_traced_call(params.trace_dir) if params.trace_dir
+              else contextlib.nullcontext())
+    with traced, span("predict_match"):
+        return _predict_match(query_db, target_db, control_db, params,
+                              cache, dump_stages)
+
+
+def _predict_match(query_db, target_db, control_db, params, cache,
+                   dump_stages):
     from ..logging import stage_timer
     from .workflow import NullCache
 
-    params = params or PredictParams()
     cache = cache or NullCache()
-
-    profiler_cm = contextlib.nullcontext()
-    if params.trace_dir:
-        profiler_cm = _torch_trace(params.trace_dir)
 
     # Step-granular resume (SURVEY 5.4): every stage below the two
     # searches is its own cached artifact, mirroring the reference's
@@ -1128,7 +1227,7 @@ def predict_match(query_db: SetDB, target_db: SetDB, control_db: SetDB,
     # tmp+rename protocol; if it dies, the parent recomputes in-process.
     rev_pid = _fork_reverse_search(cache, query_db, control_db, params)
 
-    with profiler_cm, stage_timer("search"):
+    with stage_timer("search"):
         search_result = cache.get_or_compute(
             "result", lambda: search_setdbs(query_db, target_db, params))
     aggregate, merged, cscore = cache.get_or_compute(
@@ -1136,10 +1235,11 @@ def predict_match(query_db: SetDB, target_db: SetDB, control_db: SetDB,
                                               target_db))
 
     if rev_pid is not None:
-        try:
-            os.waitpid(rev_pid, 0)
-        except ChildProcessError:
-            pass
+        with span("control_wait"):
+            try:
+                os.waitpid(rev_pid, 0)
+            except ChildProcessError:
+                pass
 
     # result_rev is only needed by the aggregation (and the optional
     # stage dumps) — when the child already wrote aggregate_rev, the
@@ -1159,9 +1259,11 @@ def predict_match(query_db: SetDB, target_db: SetDB, control_db: SetDB,
             lambda: _aggregate_chain(_get_result_rev(), query_db,
                                      control_db))[2]
 
-    match, messages = cache.get_or_compute(
-        "match", lambda: filter_match_by_fdr(cscore, cscore_rev, params.fdr,
-                                             params.report_fdr))
+    with span("fdr"):
+        match, messages = cache.get_or_compute(
+            "match", lambda: filter_match_by_fdr(cscore, cscore_rev,
+                                                 params.fdr,
+                                                 params.report_fdr))
 
     def _aln_stage():
         q_sizes = np.asarray(query_db.set_size)[query_db.orf_to_set]
@@ -1180,10 +1282,12 @@ def predict_match(query_db: SetDB, target_db: SetDB, control_db: SetDB,
             aln_merged = find_pam(aln_merged, target_db)
         return truncated, aln_merged
 
-    truncated, aln_merged = cache.get_or_compute("aln", _aln_stage)
+    with span("alignments"):
+        truncated, aln_merged = cache.get_or_compute("aln", _aln_stage)
 
-    text = summarize_results(match, aln_merged, params.fmt, params.report_fdr,
-                             taxonomy=None)
+    with span("report"):
+        text = summarize_results(match, aln_merged, params.fmt,
+                                 params.report_fdr, taxonomy=None)
     result = PredictResult(text, match, cscore, cscore_rev, aln_merged,
                            aggregate, truncated, messages)
 
@@ -1201,7 +1305,19 @@ def predict_match(query_db: SetDB, target_db: SetDB, control_db: SetDB,
         for name, table in stage_tables.items():
             write_entries(table, os.path.join(dump_stages, name + ".tsv"))
 
-    # taxonomy reports (data/predictmatch.sh:170-230)
+    with span("taxonomy"):
+        _taxonomy_reports(result, truncated, cscore, cscore_rev, query_db,
+                          target_db, params)
+
+    cache.flush()   # join background artifact writers (resume-durable)
+    return result
+
+
+def _taxonomy_reports(result, truncated, cscore, cscore_rev, query_db,
+                      target_db, params):
+    """The LCA reports (data/predictmatch.sh:170-230) into
+    result.lca_tsv and result.lca_per_target_tsv, where the DBs carry
+    taxonomy."""
     from ..tax.lcasteps import (aggregate_tax, majority_lca_per_target,
                                 per_orf_lca, restrict_ranks)
     from ..tax.ncbi import DEFAULT_RANKS, load_taxonomy
@@ -1242,6 +1358,3 @@ def predict_match(query_db: SetDB, target_db: SetDB, control_db: SetDB,
             lines.append(target_db.set_names[tset] + "\t"
                          + "\t".join(per_target[tset]))
         result.lca_per_target_tsv = "\n".join(lines) + ("\n" if lines else "")
-
-    cache.flush()   # join background artifact writers (resume-durable)
-    return result

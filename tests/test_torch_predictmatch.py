@@ -70,8 +70,9 @@ def test_golden_regression_invariant_six_hits(golden_dbs):
 def test_golden_cli_predictmatch_use_tpu_traced(golden_dbs, golden,
                                                  tmp_path, monkeypatch):
     """The CLI entry with --use-tpu 1 (asked for on the CPU) and
-    --trace-dir: golden bytes and a torch.profiler trace of the search
-    stage."""
+    --trace-dir: golden bytes, a torch.profiler trace of the whole call,
+    and spans.json with both searches' spans and the counters."""
+    import json
     from spacepharer_tpu_torch import cli
     monkeypatch.setenv(pm.DEVICE_ENV, "cpu")
     _, text = golden_dbs
@@ -82,7 +83,16 @@ def test_golden_cli_predictmatch_use_tpu_traced(golden_dbs, golden,
                    "--trace-dir", str(trace_dir)])
     assert rc == 0
     assert out.read_text() == text
-    assert (trace_dir / "search.trace.json").stat().st_size > 0
+    assert (trace_dir / "predictmatch.trace.json").stat().st_size > 0
+    spans = json.loads((trace_dir / "spans.json").read_text())
+    by_id = {r["id"]: r for r in spans["spans"]}
+    for stage in ("search", "search_rev"):
+        (top,) = [r for r in by_id.values() if r["name"] == stage]
+        children = [r for r in by_id.values()
+                    if r["name"] == "search_setdbs"
+                    and r["parent"] == top["id"]]
+        assert len(children) == 1
+    assert spans["counters"]["candidate_pairs"] > 0
 
 
 @pytest.mark.parametrize("mesh", [(1, 8), (2, 4), (4, 2)])

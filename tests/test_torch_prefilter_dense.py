@@ -17,11 +17,23 @@ import numpy as np
 import pytest
 import torch
 
+from spacepharer_tpu_torch.logging import timings
 from spacepharer_tpu_torch.ops import prefilter_dense as pd
 from spacepharer_tpu_torch.ops.bias import local_aa_bias
 from spacepharer_tpu_torch.ops.matrices import load_matrix
 from spacepharer_tpu_torch.ops.prefilter import (
     PrefilterParams, SimilarKmerEnumerator, build_masked_flat)
+
+
+# the registry counters of the counts and emit launches
+LAUNCHES = ("prefilter_dense_counts_launches",
+            "prefilter_dense_emit_launches")
+
+
+def _counted(*names):
+    """The registry's totals (logging.timings) of the named counters."""
+    got = timings()
+    return tuple(got.get(n, 0) for n in names)
 
 
 def make_corpus(seed, n_targets=40, n_queries=12):
@@ -481,15 +493,15 @@ def match_pairs_small_bounds(batch, flat, bval, scores, kmer_thr):
     launches of at most 17 hits, so that it walks several of each: its
     hit pairs, and the counts and emit launches it made."""
     saved = pd.MAX_TILES, pd.MAX_EMIT_HITS
-    before = pd.counts_launches, pd.emit_launches
+    before = _counted(*LAUNCHES)
     pd.MAX_TILES, pd.MAX_EMIT_HITS = 3, 17
     try:
         got = pairs(*pd.match_pairs(batch, flat, bval, scores, kmer_thr,
                                     device="cuda"))
     finally:
         pd.MAX_TILES, pd.MAX_EMIT_HITS = saved
-    return got, (pd.counts_launches - before[0],
-                 pd.emit_launches - before[1])
+    after = _counted(*LAUNCHES)
+    return got, (after[0] - before[0], after[1] - before[1])
 
 
 @pytest.mark.parametrize("case", list(CUDA_CASES))
@@ -582,7 +594,7 @@ def test_cuda_kernels_match_plain(case, monkeypatch):
     params, seed_m, batch, flat, bval = cuda_case(case)
     thr = params.kmer_threshold()
     inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores, thr, "cuda")
-    before = pd.counts_launches, pd.emit_launches
+    before = _counted(*LAUNCHES)
     counts = pd.prefilter_dense_counts(*inputs)
     torch.testing.assert_close(counts, pd.prefilter_dense_counts_plain(
         *inputs), rtol=0, atol=0)
@@ -598,8 +610,9 @@ def test_cuda_kernels_match_plain(case, monkeypatch):
             gi, gj = pd.prefilter_dense_emit(*inputs, *hit, compacted)
             assert tile_sets(gi, gj, hit[2]) == want, (listing, run)
     assert (hit[3] == 0) == (case == "zero_hits")
-    assert pd.counts_launches - before[0] == 1
-    assert pd.emit_launches - before[1] == 3 * (2 if hit[3] else 1)
+    after = _counted(*LAUNCHES)
+    assert after[0] - before[0] == 1
+    assert after[1] - before[1] == 3 * (2 if hit[3] else 1)
     if hit[0].numel() > 1:
         with pytest.raises(ValueError, match="ascending"):
             pd.prefilter_dense_emit(*inputs, hit[0].flip(0), *hit[1:],

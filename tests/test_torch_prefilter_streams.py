@@ -24,7 +24,8 @@ from spacepharer_tpu_torch.ops.prefilter import (
     PrefilterParams, TargetIndex, _finalize_native, build_masked_flat,
     ungapped_profile_cap)
 from spacepharer_tpu_torch.pipeline import predictmatch as pm
-from test_torch_prefilter_dense import CUDA_CASES, EDGE_CASES, _case, cuda_case
+from test_torch_prefilter_dense import (CUDA_CASES, EDGE_CASES, _case,
+                                        _counted, cuda_case)
 
 
 def stream_case(seed, n_queries=12, alphabet=20, n_hits=3000,
@@ -528,7 +529,10 @@ def card_streams_check(batch, gi, gj, flat, starts, scores):
     tensors (the rank tables, the keys, the runs of one sorted order),
     and the whole rebuild on the card against the plain rebuild on the
     CPU. Returns the largest difference (0) and the launches made."""
-    before = pd.ranks_launches, pd.keys_launches, pd.runs_launches
+    names = ("prefilter_streams_ranks_launches",
+             "prefilter_streams_keys_launches",
+             "prefilter_streams_runs_launches")
+    before = _counted(*names)
     q_flat, offsets, t, ts, seed, qs, seq_bits, narrow = pd.stream_inputs(
         batch, flat, starts, scores, "cuda")
     slot_of, tables = pd.stream_rank_tables(q_flat, offsets, gi,
@@ -554,8 +558,7 @@ def card_streams_check(batch, gi, gj, flat, starts, scores):
     err += sum(int((a.astype(np.int64) != b.astype(np.int64)).sum())
                for a, b in zip(whole, want))
     torch.cuda.synchronize()
-    launched = (pd.ranks_launches - before[0], pd.keys_launches - before[1],
-                pd.runs_launches - before[2])
+    launched = tuple(a - b for a, b in zip(_counted(*names), before))
     return err, launched
 
 

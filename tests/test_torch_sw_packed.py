@@ -11,8 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from spacepharer_tpu_torch.logging import timings
 from spacepharer_tpu_torch.ops import sw_packed
 from spacepharer_tpu_torch.ops.matrices import load_matrix
+
+
+def _counted(*names):
+    """The registry's totals (logging.timings) of the named counters."""
+    got = timings()
+    return tuple(got.get(n, 0) for n in names)
 
 
 def _case_random(seed):
@@ -150,10 +157,10 @@ def test_cuda_kernel_matches_plain(case):
     make = _case_long_query if case == "long_query" else CASES[case]
     qs, ts, biases, go, ge, _ = make()
     m = load_matrix("VTML40.out", 2.0)
-    before = sw_packed.launches
+    (before,) = _counted("sw_allpairs_launches")
     got = sw_packed.device_allpairs_scores(qs, ts, m.scores, biases, go, ge,
                                            device="cuda")
-    assert sw_packed.launches > before
+    assert _counted("sw_allpairs_launches")[0] > before
     ref = sw_packed.device_allpairs_scores(qs, ts, m.scores, biases, go, ge,
                                            device="cpu")
     np.testing.assert_array_equal(got, ref)
@@ -171,10 +178,10 @@ def test_cuda_kernel_split_launches_match_plain(monkeypatch):
     biases = biases[:1] + biases[3:] + biases[1:3]
     m = load_matrix("VTML40.out", 2.0)
     monkeypatch.setattr(sw_packed, "SCRATCH_BYTES", 1)
-    before = sw_packed.launches
+    (before,) = _counted("sw_allpairs_launches")
     got = sw_packed.device_allpairs_scores(qs, ts, m.scores, biases, go, ge,
                                            device="cuda")
-    assert sw_packed.launches - before == 3
+    assert _counted("sw_allpairs_launches")[0] - before == 3
     ref = sw_packed.device_allpairs_scores(qs, ts, m.scores, biases, go, ge,
                                            device="cpu")
     np.testing.assert_array_equal(got, ref)

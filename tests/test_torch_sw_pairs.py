@@ -23,9 +23,16 @@ import pytest
 import torch
 
 from spacepharer_tpu_torch.io.setdb import SetDB
+from spacepharer_tpu_torch.logging import timings
 from spacepharer_tpu_torch.ops import sw_packed
 from spacepharer_tpu_torch.ops.matrices import load_matrix
 from spacepharer_tpu_torch.pipeline import predictmatch as pm
+
+
+def _counted(*names):
+    """The registry's totals (logging.timings) of the named counters."""
+    got = timings()
+    return tuple(got.get(n, 0) for n in names)
 
 
 def _make(seed, q_lens, t_lens, per_query, alphabet=20, bias="random",
@@ -369,9 +376,9 @@ def test_cuda_pair_kernel_matches_plain(case):
     m = load_matrix("VTML40.out", 2.0)
     args = (qs, biases, *_packed_targets(ts), cand_t, cand_off, m.scores,
             go, ge)
-    before = sw_packed.pair_launches
+    (before,) = _counted("sw_pairs_launches")
     got = sw_packed.device_pair_scores(*args, device="cuda")
-    assert sw_packed.pair_launches > before or len(cand_t) == 0
+    assert _counted("sw_pairs_launches")[0] > before or len(cand_t) == 0
     np.testing.assert_array_equal(
         got, sw_packed.device_pair_scores(*args, device="cpu"))
 
@@ -425,8 +432,8 @@ def test_cuda_pair_kernel_split_launches_match_plain(monkeypatch):
     monkeypatch.setattr(sw_packed, "SCRATCH_BYTES", 8)
     long_pairs = int(np.sum(np.repeat([len(q) > sw_packed.STRIPE
                                        for q in qs], np.diff(cand_off))))
-    before = sw_packed.pair_launches
+    (before,) = _counted("sw_pairs_launches")
     got = sw_packed.device_pair_scores(*args, device="cuda")
-    assert sw_packed.pair_launches - before >= long_pairs
+    assert _counted("sw_pairs_launches")[0] - before >= long_pairs
     np.testing.assert_array_equal(
         got, sw_packed.device_pair_scores(*args, device="cpu"))

@@ -11,9 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+from spacepharer_tpu_torch.logging import timings
 from spacepharer_tpu_torch.ops import sw_packed, sw_pallas
 from spacepharer_tpu_torch.ops.align import _forward_pass
 from spacepharer_tpu_torch.ops.matrices import load_matrix
+
+
+def _counted(*names):
+    """The registry's totals (logging.timings) of the named counters."""
+    got = timings()
+    return tuple(got.get(n, 0) for n in names)
+
 
 NEG = -(10 ** 6)
 
@@ -278,11 +286,11 @@ def test_wrappers_take_cpu_only_as_plain():
     """CPU tensors run the plain version and launch nothing; other
     devices are refused."""
     prof, q_len, t_seqs, t_len, go, ge = CASES["pallas_one_query"]()
-    before = (sw_pallas.batch_launches, sw_pallas.one_query_launches,
-              sw_pallas.cells)
+    names = ("sw_dense_batch_launches", "sw_dense_one_query_launches",
+             "sw_dense_cells")
+    before = _counted(*names)
     sw_pallas.sw_scores_batch(*_torch(prof, q_len, t_seqs, t_len), go, ge)
-    assert (sw_pallas.batch_launches, sw_pallas.one_query_launches,
-            sw_pallas.cells) == before
+    assert _counted(*names) == before
     with pytest.raises(ValueError, match="unsupported device"):
         sw_pallas.sw_scores_batch(
             *(x.to("meta") for x in _torch(prof, q_len, t_seqs, t_len)))
@@ -300,9 +308,9 @@ def test_cuda_batch_matches_plain(case):
     dev = _cuda()
     prof, q_len, t_seqs, t_len, go, ge = cuda_case(case)
     args = tuple(x.to(dev) for x in _torch(prof, q_len, t_seqs, t_len))
-    before = sw_pallas.batch_launches
+    (before,) = _counted("sw_dense_batch_launches")
     got = sw_pallas.sw_scores_batch(*args, go, ge)
-    assert sw_pallas.batch_launches > before
+    assert _counted("sw_dense_batch_launches")[0] > before
     ref = sw_pallas.sw_scores_batch_plain(*args, go, ge)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
@@ -316,9 +324,9 @@ def test_cuda_one_query_matches_plain(case):
     ts, tl = (x.to(dev) for x in _torch(t_seqs, t_len))
     for qi in range(min(6, prof.shape[0])):
         p, ql = (x.to(dev) for x in _torch(prof[qi], q_len[qi]))
-        before = sw_pallas.one_query_launches
+        (before,) = _counted("sw_dense_one_query_launches")
         got = sw_pallas.sw_scores_one_query(p, ql, ts, tl, go, ge)
-        assert sw_pallas.one_query_launches == before + 1
+        assert _counted("sw_dense_one_query_launches")[0] == before + 1
         ref = sw_pallas.sw_scores_one_query_plain(p, ql, ts, tl, go, ge)
         torch.cuda.synchronize()
         assert torch.equal(got, ref), qi
@@ -333,9 +341,9 @@ def test_cuda_split_launches_match_plain(monkeypatch):
     prof, q_len, t_seqs, t_len, go, ge = cuda_case("long_query")
     args = tuple(x.to(dev) for x in _torch(prof, q_len, t_seqs, t_len))
     monkeypatch.setattr(sw_pallas, "SCRATCH_BYTES", 1)
-    before = sw_pallas.batch_launches
+    (before,) = _counted("sw_dense_batch_launches")
     got = sw_pallas.sw_scores_batch(*args, go, ge)
-    assert sw_pallas.batch_launches - before == 3
+    assert _counted("sw_dense_batch_launches")[0] - before == 3
     ref = sw_pallas.sw_scores_batch_plain(*args, go, ge)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
