@@ -13,9 +13,10 @@ Phase 0  requires CUDA, prints the card (nvidia-smi) and builds the
          sw_dense (and the shuffles of sw_allpairs, whose pair-list tail
          passes each row's left edge between lanes), the float64 opcodes
          of pair_profile, the integer MMA
-         opcodes of prefilter_dense and the warp match and vote opcodes of
-         prefilter_streams; it fails if the emit kernel has no IMMA or
-         the profile kernel has a DFMA.
+         opcodes of prefilter_dense (mma.sync's IMMA, wgmma's IGMMA) and
+         the warp match and vote opcodes of prefilter_streams; it fails if
+         the emit kernel has no IMMA, if the counts kernel has no IGMMA or
+         any IMMA, or if the profile kernel has a DFMA.
 Phase 1  holds B1's dense entry against its plain PyTorch version on the
          card, exactly, on the test corpora and on a production-shaped
          workload (the golden bundle's 305 query ORFs x 691 target ORFs,
@@ -74,7 +75,9 @@ Phase 4  the dense prefilter's kernels (counts and emit) and its stream
          tests/test_torch_prefilter_streams.py (keys too wide for one
          sort, a run across many blocks, every query half among them);
          (b) at the production shape (phase 3's query k-mer rows x its
-         whole masked target), exact and timed (each kernel alone on the
+         whole masked target; tools/time_counts_kernel.py times the counts
+         kernel there for two checkouts, parent against change), exact and
+         timed (each kernel alone on the
          compacted rows, the emit also at other run caps; the compaction
          and the emit's run starts apart; the counts' wrapper with the
          compaction and the emit's with its run starts and check), with
@@ -243,10 +246,11 @@ P5_KERNEL_CALLS = 5   # phase 5(b): calls per timed kernel chain
 # SASS opcodes counted per kernel function in phase 0: the min/max family
 # of sw_dense and of sw_allpairs (their DPX add-max and three-way max among
 # them; and sw_allpairs' shuffles) and the integer MMA of prefilter_dense
+# (mma.sync's IMMA in emit, wgmma's IGMMA in counts)
 SASS_COUNTED = {"sw_dense": re.compile(r"MNMX"),
                 "sw_allpairs": re.compile(r"MNMX|^SHFL"),
                 "pair_profile": re.compile(r"^D(ADD|MUL|FMA)|^MUFU"),
-                "prefilter_dense": re.compile(r"^IMMA|^LDSM"),
+                "prefilter_dense": re.compile(r"^IMMA|^IGMMA|^LDSM"),
                 "prefilter_streams": re.compile(r"^MATCH|^VOTE")}
 # phase 4(b): emit run caps timed beside prefilter_dense.EMIT_RUN
 EMIT_RUN_SWEEP = (16, 32, 64, 128, 256)
@@ -1703,7 +1707,9 @@ def phase4_production(dev, p3, clock_hz):
                 + [_hit_err(out, e_plain, hit[2])
                    for out in [e_kernel] + [o for _, o in sweep.values()]])
     print(f"phase4 production counts: {compacted[0].shape[0]} compacted "
-          f"rows; kernel alone {k_ms} ms -> {cells / (k_ms * 1e-3):.6g} "
+          f"rows ({compacted[0].shape[0] // pd.ROW_TILE} stages) x "
+          f"{inputs[3].numel() // pd.TILE_T} target tiles; kernel alone "
+          f"{k_ms} ms -> {cells / (k_ms * 1e-3):.6g} "
           f"cells/s; wrapper with the row compaction {w_ms} ms (one "
           f"compaction {compact_ms:.3f} ms); plain {p_ms} ms -> "
           f"{cells / (p_ms * 1e-3):.6g} cells/s; max|kernel-plain| = "
@@ -2592,7 +2598,8 @@ def _build_all():
     """Build every kernel library at once (one nvcc each), print each
     one's ptxas registers and spills, and the counts of SASS_COUNTED's
     opcodes per kernel function; fail unless the emit kernel runs on the
-    integer tensor cores (IMMA), or if the profile kernel has a DFMA
+    integer tensor cores (IMMA) and the counts kernel on warpgroup
+    products alone (IGMMA, no IMMA), or if the profile kernel has a DFMA
     (where cuobjdump can read it). Returns {library: {function: {opcode:
     count}}}."""
     from spacepharer_tpu_torch.ops import _cuda
@@ -2622,6 +2629,12 @@ def _build_all():
     if not any(op.startswith("IMMA") for op in emit):
         raise AssertionError("phase0: no IMMA in emit_kernel's SASS (or its "
                              "SASS could not be read)")
+    # counts runs on warpgroup products (wgmma) alone
+    counts = sass.get("prefilter_dense", {}).get("counts_kernel", {})
+    if (not any(op.startswith("IGMMA") for op in counts)
+            or any(op.startswith("IMMA") for op in counts)):
+        raise AssertionError("phase0: counts_kernel's SASS has no IGMMA, or "
+                             "has IMMA (or could not be read)")
     # the bias is float64 rounded step by step: a DFMA would fuse two
     if any(op.startswith("DFMA") for ops in sass.get("pair_profile", {})
            .values() for op in ops):

@@ -495,6 +495,9 @@ def prefilter_dense_counts(qexp, thr, letters, tval, offsets,
     if lib.prefilter_dense_row_tile() != ROW_TILE:
         raise RuntimeError("prefilter_dense: ROW_TILE disagrees with the "
                            "kernel")
+    if max(offs) > lib.prefilter_dense_max_offset():
+        raise ValueError(f"prefilter_dense_counts: the kernel takes spaced "
+                         f"offsets up to {lib.prefilter_dense_max_offset()}")
     R, C = qexp.shape[0], tval.numel()
     out = torch.zeros((C // TILE_T, R // TILE_Q), dtype=torch.int32,
                       device=dev)

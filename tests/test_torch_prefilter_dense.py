@@ -178,9 +178,99 @@ def _edge_four_offsets():
     return params, S, batch, _plant(rng, q_all, 10)
 
 
+def _one_query(seed, n_valid, thr_less, planted, length=None):
+    """(params, S, batch, targets) of one query whose n_valid k-mer rows
+    all can match (no X), each at its own K less thr_less, and one target
+    ORF of `length` random residues (or just long enough) with row r's
+    k-mer planted at position j for each (r, j) of `planted`. The k-mer
+    threshold 0 makes every target k-mer inside the ORF valid."""
+    rng = np.random.default_rng(seed)
+    S = load_matrix(PrefilterParams().seed_matrix, 8.0).scores
+    params = _EdgeParams(np.array([0, 1, 3, 4, 5, 7]), 8, 0)
+    span = params.pattern_span
+    q = rng.integers(0, 20, n_valid + span)
+    batch = pd.build_query_batch([q], [0], [np.zeros(len(q))], params)
+    assert int((batch.kmer_thr <= pd.MAX_K).sum()) == n_valid
+    batch.kmer_thr[:n_valid] = _self_scores(batch, S)[:n_valid] - thr_less
+    if length is None:
+        length = max(j for _, j in planted) + span + 5
+    t = rng.integers(0, 20, length).astype(np.uint8)
+    for r, j in planted:
+        t[j:j + span] = q[r:r + span]
+    return params, S, batch, [t]
+
+
+def _edge_one_stage():
+    """Exactly one stage of the counts kernel: 128 rows that can match,
+    no pad row, 10 of them planted."""
+    rng = np.random.default_rng(35)
+    rows = rng.choice(pd.ROW_TILE, 10, replace=False)
+    return _one_query(35, pd.ROW_TILE, 20,
+                      [(int(r), 40 * k + 3) for k, r in enumerate(rows)])
+
+
+def _edge_last_cell():
+    """The last row of each of three stages (127, 255, 383) hits at the
+    last position of target tiles 0-2 (511, 1023, 1535), and row 0 at the
+    first position of tile 4."""
+    last = [pd.ROW_TILE * s - 1 for s in (1, 2, 3)]
+    planted = [(r, pd.TILE_T * (k + 1) - 1) for k, r in enumerate(last)]
+    return _one_query(36, 3 * pd.ROW_TILE, 20,
+                      planted + [(0, 4 * pd.TILE_T)])
+
+
+def _edge_k_eq_thr():
+    """Rows at thr = their own K: each planted k-mer hits with K exactly
+    thr, and a copy of it with one letter changed (K below thr) does not."""
+    rng = np.random.default_rng(37)
+    params, S, batch, _ = _one_query(37, 200, 0, [(0, 0)])
+    q = batch.q_flat
+    pieces = []
+    for r in rng.choice(200, 12, replace=False):
+        kmer = q[r:r + 8].copy()
+        pieces.append(kmer.copy())
+        kmer[0] = (kmer[0] + 1) % 20
+        pieces.append(kmer)
+    return params, S, batch, _plant(rng, pieces, 6)
+
+
+def _edge_ring_wrap():
+    """14 stages (1,669 rows that can match), not a multiple of the
+    counts kernel's ring of 6 stages, over three target tiles."""
+    rng = np.random.default_rng(38)
+    rows = rng.choice(1669, 16, replace=False)
+    return _one_query(38, 1669, 15,
+                      [(int(r), 90 * k + 7) for k, r in enumerate(rows)],
+                      length=3 * pd.TILE_T - 40)
+
+
+def _edge_many_tiles():
+    """137 target tiles, more than the counts kernel's persistent grid (a
+    block a multiprocessor, 132 on an H100) and not a multiple of it, so
+    some blocks walk two tiles, each against 5 stages; 30 rows planted
+    across the tiles. Every other case has fewer tiles than the grid."""
+    rng = np.random.default_rng(39)
+    rows = rng.choice(600, 30, replace=False)
+    return _one_query(39, 600, 15,
+                      [(int(r), 2300 * k + 11) for k, r in enumerate(rows)],
+                      length=137 * pd.TILE_T - 300)
+
+
+def _edge_one_cell():
+    """Every one of a query tile's 256 rows hits every valid position of
+    one target tile (thr = -762): the most atomic adds on one count."""
+    params, S, batch, targets = _one_query(40, pd.TILE_Q, 0, [(0, 0)],
+                                           length=400)
+    batch.kmer_thr[:pd.TILE_Q] = -pd.MAX_K
+    return params, S, batch, targets
+
+
 EDGE_CASES = {"thr762": _edge_thr762, "thr0": _edge_thr0,
               "tile_fill": _edge_tile_fill,
-              "four_offsets": _edge_four_offsets}
+              "four_offsets": _edge_four_offsets,
+              "one_stage": _edge_one_stage, "last_cell": _edge_last_cell,
+              "k_eq_thr": _edge_k_eq_thr, "ring_wrap": _edge_ring_wrap,
+              "many_tiles": _edge_many_tiles, "one_cell": _edge_one_cell}
 
 
 def edge_case(name):
@@ -303,6 +393,21 @@ def test_edge_counts_match_pallas_interpret(name):
         s0 = batch.q_starts
         assert s0[0] in hit_rows and s0[2] in hit_rows
         assert s0[1] not in hit_rows
+    # the counts kernel's schedule edges that the later cases stand for
+    stages, ntt = compacted[0].shape[0] // pd.ROW_TILE, want.shape[0]
+    if name == "one_stage":
+        assert stages == 1 and int((compacted[1] <= pd.MAX_K).sum()) == 128
+    if name == "last_cell":
+        assert {(127, 511), (255, 1023), (383, 1535), (0, 2048)} <= set(got)
+    if name == "k_eq_thr":
+        K = _self_scores(batch, seed_m.scores)
+        assert any(K[i] == batch.kmer_thr[i] for i, _ in got)
+    if name == "ring_wrap":
+        assert stages == 14
+    if name == "many_tiles":
+        assert ntt == 137 and stages == 5
+    if name == "one_cell":
+        assert want[0, 0] == pd.TILE_Q * 393 == want.sum()
 
 
 def test_compact_rows_keeps_rows_that_can_match():
@@ -585,7 +690,8 @@ def test_compacted_emit_matches_jax_extract(seed):
 @pytest.mark.parametrize("case", list(CUDA_CASES))
 def test_cuda_kernels_match_plain(case, monkeypatch):
     """Counts and emitted hits of the kernels equal the plain versions on
-    the same card tensors (the emit as a set per tile, also at runs of 1
+    the same card tensors (the counts those of all rows and of the
+    compacted rows; the emit as a set per tile, also at runs of 1
     and 2 hit tiles, and with every tile of the grid listed); match_pairs
     on the card, walking several target chunks and emit launches, equals
     the numpy oracle."""
@@ -599,6 +705,8 @@ def test_cuda_kernels_match_plain(case, monkeypatch):
     torch.testing.assert_close(counts, pd.prefilter_dense_counts_plain(
         *inputs), rtol=0, atol=0)
     compacted = pd.compact_rows(inputs[0], inputs[1])
+    assert torch.equal(counts, pd.prefilter_dense_counts_compacted_plain(
+        compacted, *inputs[2:], counts.shape[1]))
     runs = (pd.EMIT_RUN, 1, 2)
     for listing in ("hit", "every"):
         hit = listed_tiles(counts, listing)
