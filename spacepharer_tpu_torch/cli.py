@@ -599,7 +599,12 @@ def main(argv=None):
         print(f"Unknown command {cmd!r}. Commands: {', '.join(COMMANDS)}",
               file=sys.stderr)
         return 1
-    return COMMANDS[cmd](argv[1:])
+    try:
+        return COMMANDS[cmd](argv[1:])
+    finally:
+        # the command's SetDBs end with it: free their device copies
+        from .ops import resident
+        resident.release()
 
 
 if __name__ == "__main__":

@@ -47,6 +47,7 @@ MAX_EMIT_HITS).
 """
 import ctypes
 from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -614,25 +615,69 @@ def build_qexp_i8(batch: QueryKmerBatch, seed_scores: np.ndarray):
     return qexp, thr
 
 
-def target_chunk(batch: QueryKmerBatch, t_flat: np.ndarray,
-                 t_bval: np.ndarray, seed_scores: np.ndarray, kmer_thr: int,
-                 c0: int, C: int, device):
-    """(letters, tval) of target positions c0 .. c0 + C - 1 on `device`:
-    the letters X-padded past the target's end, tval from prep. C is a
-    multiple of TILE_T."""
-    span = batch.span
+class DenseTarget(NamedTuple):
+    """The whole target of the dense pass on one device: letters uint8
+    [t_res + TILE_T + span - 1], X past the target's end, so that every
+    target chunk's k-mers lie inside; bval bool [t_res + TILE_T], the
+    positions whose k-mer stays inside one ORF, False past the end;
+    t_starts int64 [n_seqs + 1] (None where it was not given); t_res."""
+    letters: torch.Tensor
+    bval: torch.Tensor
+    t_starts: Optional[torch.Tensor]
+    t_res: int
+
+
+def boundary_valid(t_starts: torch.Tensor, t_res: int, length: int,
+                   kmer_span: int) -> torch.Tensor:
+    """bool [length] on t_starts' device: target_boundary_valid of the
+    target that t_starts delimits, False from t_res on (length > t_res)."""
+    valid = torch.zeros(length, dtype=torch.bool, device=t_starts.device)
+    valid[:t_res] = True
+    s0, s1 = t_starts[:-1], t_starts[1:]
+    for o in range(1, kmer_span):
+        idx = s1 - o
+        valid[torch.where(idx >= s0, idx, length - 1)] = False
+    return valid
+
+
+def dense_target(t_flat, t_bval, kmer_span: int, device,
+                 t_starts=None) -> DenseTarget:
+    """The DenseTarget of t_flat on `device`: the letters in one upload;
+    bval from t_bval (a host mask or a tensor, its first t_res entries),
+    or, where t_bval is None, built on the device from t_starts
+    (boundary_valid) in the span dense_target_valid."""
+    dev = torch.device(device)
+    t_flat = np.asarray(t_flat)
     t_res = len(t_flat)
-    letters = np.full(C + span - 1, X_IDX, dtype=np.uint8)
-    avail = max(min(c0 + C + span - 1, t_res) - c0, 0)
-    letters[:avail] = t_flat[c0:c0 + avail]
-    bval = np.zeros(C, dtype=bool)
-    bn = max(min(c0 + C, t_res) - c0, 0)
-    bval[:bn] = t_bval[c0:c0 + bn]
-    letters_d = upload(letters, device)
-    diag21 = upload(np.diag(seed_scores)[:21].astype(np.int32), device)
-    return letters_d, prep(letters_d, upload(bval, device), diag21,
-                           tuple(int(o) for o in batch.offsets),
-                           int(kmer_thr))
+    if t_res and int(t_flat.max()) > X_IDX:
+        raise ValueError("target letters must lie in [0, 20]")
+    letters = np.full(t_res + TILE_T + kmer_span - 1, X_IDX, dtype=np.uint8)
+    letters[:t_res] = t_flat
+    ts = (None if t_starts is None
+          else upload(np.array(t_starts, dtype=np.int64), dev))
+    if t_bval is None:
+        with span("dense_target_valid"):
+            bval = boundary_valid(ts, t_res, t_res + TILE_T, kmer_span)
+    else:
+        bval = torch.zeros(t_res + TILE_T, dtype=torch.bool, device=dev)
+        bval[:t_res] = upload(t_bval, dev)[:t_res]
+    return DenseTarget(upload(letters, dev), bval, ts, t_res)
+
+
+def target_chunk(target: DenseTarget, batch: QueryKmerBatch, diag21,
+                 kmer_thr: int, c0: int, C: int):
+    """(letters, tval) of target positions c0 .. c0 + C - 1: a slice of
+    the target on its device, and tval from prep (diag21 the seed
+    matrix's diagonal there). C is a multiple of TILE_T and c0 + C at
+    most a tile past the target's end."""
+    letters = target.letters[c0:c0 + C + batch.span - 1]
+    return letters, prep(letters, target.bval[c0:c0 + C], diag21,
+                         tuple(int(o) for o in batch.offsets),
+                         int(kmer_thr))
+
+
+def _diag21(seed_scores, device):
+    return upload(np.diag(seed_scores)[:21].astype(np.int32), device)
 
 
 def dense_inputs(batch: QueryKmerBatch, t_flat: np.ndarray,
@@ -642,9 +687,10 @@ def dense_inputs(batch: QueryKmerBatch, t_flat: np.ndarray,
     shared layout) for one chunk holding the batch and the whole
     target, on `device`."""
     qexp, thr = build_qexp_i8(batch, seed_scores)
-    C = max(-(-len(t_flat) // TILE_T), 1) * TILE_T
-    letters, tval = target_chunk(batch, t_flat, t_bval, seed_scores,
-                                 kmer_thr, 0, C, device)
+    target = dense_target(t_flat, t_bval, batch.span, device)
+    C = max(-(-target.t_res // TILE_T), 1) * TILE_T
+    letters, tval = target_chunk(target, batch, _diag21(seed_scores, device),
+                                 kmer_thr, 0, C)
     return (upload(qexp, device), upload(thr, device), letters, tval,
             tuple(int(o) for o in batch.offsets))
 
@@ -663,19 +709,21 @@ def hit_tiles(counts: torch.Tensor):
 
 def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
                 t_bval: np.ndarray, seed_scores: np.ndarray, kmer_thr: int,
-                device="cuda"):
+                device="cuda", target: Optional[DenseTarget] = None):
     """(gi int32, gj int64) tensors on `device`: every query k-mer row gi
     of the batch and target position gj with K >= thr_gi and a valid
     k-mer at gj, found by the counts and emit passes (the kernels on a
     GPU, the plain versions on the CPU). Hits come in no fixed order and
     stay on the device; no pad row or position past the target hits (their
     thresholds and tval exclude them), and the stream rebuild drops any
-    that would."""
+    that would. target: the DenseTarget of (t_flat, t_bval) already on
+    `device` (a resident copy of the catalog), or None to upload it here.
+    Each target chunk is a slice of it; the last ends a tile past the
+    target at most."""
     dev = torch.device(device)
-    t_flat = np.asarray(t_flat)
-    t_res = len(t_flat)
-    if t_res and int(t_flat.max()) > X_IDX:
-        raise ValueError("target letters must lie in [0, 20]")
+    if target is None:
+        target = dense_target(t_flat, t_bval, batch.span, dev)
+    t_res = target.t_res
     offsets = tuple(int(o) for o in batch.offsets)
     qexp_np, thr_np = build_qexp_i8(batch, seed_scores)
     qexp = upload(qexp_np, dev)
@@ -689,11 +737,13 @@ def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
     # target chunk: MAX_TILES tiles, positions addressable in int32
     C = min(max(MAX_TILES // nqt, 1) * TILE_T, 1 << 30,
             max(-(-t_res // TILE_T), 1) * TILE_T)
+    diag21 = _diag21(seed_scores, dev)
     gis, gjs = [], []
     for c0 in range(0, t_res, C):
         with span("dense_target"):
-            letters, tval = target_chunk(batch, t_flat, t_bval, seed_scores,
-                                         kmer_thr, c0, C, dev)
+            letters, tval = target_chunk(
+                target, batch, diag21, kmer_thr, c0,
+                min(C, -(-(t_res - c0) // TILE_T) * TILE_T))
         with span("dense_counts"):
             tiles, base, tc, total = hit_tiles(prefilter_dense_counts(
                 qexp, thr, letters, tval, offsets, compacted))
@@ -1058,10 +1108,12 @@ def stream_runs(perm, key, tseq, tpos, gi, q_starts, n_keys: int,
 
 
 def stream_inputs(batch: QueryKmerBatch, t_flat, t_starts, seed_scores,
-                  device):
+                  device, target: Optional[DenseTarget] = None):
     """The stream wrappers' inputs from host data, on `device`: (q_flat,
     offsets, t_flat, t_starts, seed, q_starts, seq_bits, narrow). narrow:
-    the packed key of any row of the batch fits KEY_BITS."""
+    the packed key of any row of the batch fits KEY_BITS. target: the
+    DenseTarget of (t_flat, t_starts) on `device`, whose letters and
+    starts are read in place of an upload of t_flat and t_starts."""
     dev = torch.device(device)
     offsets = tuple(int(o) for o in batch.offsets)
     if len(offsets) != N_OFF:
@@ -1075,25 +1127,30 @@ def stream_inputs(batch: QueryKmerBatch, t_flat, t_starts, seed_scores,
     def put(x, dtype):     # a copy: the masked target may be read-only
         return upload(np.array(x, dtype=dtype), dev)
 
-    return (put(batch.q_flat, np.uint8), offsets, put(t_flat, np.uint8),
-            put(t_starts, np.int64), put(seed_scores, np.int32),
-            put(batch.q_starts, np.int64), seq_bits, narrow)
+    if target is None:
+        t, ts = put(t_flat, np.uint8), put(t_starts, np.int64)
+    else:
+        t, ts = target.letters[:target.t_res], target.t_starts
+    return (put(batch.q_flat, np.uint8), offsets, t, ts,
+            put(seed_scores, np.int32), put(batch.q_starts, np.int64),
+            seq_bits, narrow)
 
 
 def rebuild_streams(batch: QueryKmerBatch, gi, gj, t_flat, t_starts,
-                    seed_scores):
+                    seed_scores, target: Optional[DenseTarget] = None):
     """(m_t int32, m_d uint16, key_offsets int64 [len(batch.keys) + 1])
     numpy: the reference-order match streams of the batch's keys from its
     dense hits gi (int32) and gj (int64), tensors on one device: the
     kernels on a card, their plain versions on the CPU. Key k's stream
     is m_t / m_d[key_offsets[k]:key_offsets[k + 1]]. One read-back: the
-    count of entries (and of unrankable hits: raises), then the arrays."""
+    count of entries (and of unrankable hits: raises), then the arrays.
+    target: as stream_inputs takes it."""
     n_keys = len(batch.keys)
     if n_keys == 0:
         return (np.zeros(0, np.int32), np.zeros(0, np.uint16),
                 np.zeros(1, np.int64))
     q_flat, offsets, t, ts, seed, qs, seq_bits, narrow = stream_inputs(
-        batch, t_flat, t_starts, seed_scores, gi.device)
+        batch, t_flat, t_starts, seed_scores, gi.device, target)
     slot_of, tables = stream_rank_tables(q_flat, offsets, gi, batch.n_rows,
                                          seed)
     key, tseq, tpos, bad = stream_keys(gi, gj, q_flat, offsets, batch.n_rows,
@@ -1235,7 +1292,7 @@ class _MaskedTargets:
 
 def device_prefilter_arrays(q_all, keys, bias80_all, t_flat_masked,
                             t_starts, params, seed_m, ungapped_m,
-                            device="cuda"):
+                            device="cuda", catalog=None):
     """(targets int32, scores int32, diagonals int32, offsets int64
     [len(keys) + 1]): the dense prefilter's hits of every key, the
     contract of prefilter_query_batch(as_arrays=True) and byte-identical
@@ -1247,12 +1304,19 @@ def device_prefilter_arrays(q_all, keys, bias80_all, t_flat_masked,
     key. Without the native library only the CPU route runs, key by key
     (finalize_streams_plain).
 
-    Its steps run in the spans dense_target_valid (the positions whose
-    k-mer stays inside one ORF), dense_query_batch (the query batch, its
-    composition bias), dense_match (match_pairs: the target chunks'
-    upload in dense_target, the counts pass and its read-back in
-    dense_counts, the emit in dense_emit), dense_streams (the stream
-    rebuild and its read-back) and dense_finalize."""
+    catalog: the SetDB whose masked target t_flat_masked is; its
+    DenseTarget on `device` is then kept in the process's resident store
+    (ops/resident.py) under the SetDB, the mask's parameters and the
+    pattern span, built on the first search and read in place on every
+    later one. Without it the target goes to `device` for this call.
+
+    Its steps run in the spans dense_target_valid (inside a build of the
+    target: the positions whose k-mer stays inside one ORF),
+    dense_query_batch (the query batch, its composition bias), dense_match
+    (match_pairs: each target chunk's slice and tval in dense_target, the
+    counts pass and its read-back in dense_counts, the emit in
+    dense_emit), dense_streams (the stream rebuild and its read-back) and
+    dense_finalize."""
     from ..native import get_lib
     t_flat_masked = np.ascontiguousarray(t_flat_masked, dtype=np.uint8)
     t_starts = np.asarray(t_starts, dtype=np.int64)
@@ -1260,8 +1324,23 @@ def device_prefilter_arrays(q_all, keys, bias80_all, t_flat_masked,
         raise RuntimeError("the dense prefilter on a card needs the native "
                            "library (its batch finalize)")
     kmer_thr = params.kmer_threshold()
-    with span("dense_target_valid"):
-        t_bval = target_boundary_valid(t_starts, params.pattern_span)
+
+    def build():
+        return dense_target(t_flat_masked, None, params.pattern_span, device,
+                            t_starts=t_starts)
+
+    if catalog is None:
+        target = build()
+    else:
+        from . import resident
+        target = resident.get(catalog, ("dense", bool(params.mask),
+                                        params.seed_matrix,
+                                        params.pattern_span), device, build)
+        if (target.t_res != len(t_flat_masked)
+                or target.t_starts.numel() != len(t_starts)):
+            raise RuntimeError("device_prefilter_arrays: the catalog's "
+                               "resident target differs from the masked "
+                               "target given")
     with span("dense_query_batch"):
         q_flat, q_starts = flat_keys(q_all, keys, np.uint8)
         if bias80_all is None:
@@ -1292,11 +1371,13 @@ def device_prefilter_arrays(q_all, keys, bias80_all, t_flat_masked,
         with span("dense_query_batch"):
             batch = build_query_batch(q_all, kchunk, bias80_all, params)
         with span("dense_match"):
-            gi, gj = match_pairs(batch, t_flat_masked, t_bval,
-                                 seed_m.scores, kmer_thr, device=device)
+            gi, gj = match_pairs(batch, t_flat_masked, target.bval,
+                                 seed_m.scores, kmer_thr, device=device,
+                                 target=target)
         with span("dense_streams"):
             m_t, m_d, bounds = rebuild_streams(batch, gi, gj, t_flat_masked,
-                                               t_starts, seed_m.scores)
+                                               t_starts, seed_m.scores,
+                                               target=target)
         offs.append(bounds[1:] + offs[-1][-1])
         m_ts.append(m_t)
         m_ds.append(m_d)

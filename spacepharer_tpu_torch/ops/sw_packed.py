@@ -772,10 +772,23 @@ def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
     return out
 
 
+def pair_targets(t_flat, t_off, device, alphabet: int):
+    """(t_seqs uint8 [t_res + T_PAD], t_off int64) on `device`, in one
+    upload each: the targets as sw_pairs reads them. Raises if a letter
+    lies outside the matrix's `alphabet`."""
+    t_flat = np.ascontiguousarray(t_flat, dtype=np.uint8)
+    if len(t_flat) and int(t_flat.max()) >= alphabet:
+        raise ValueError("device_pair_scores: target letters must lie in "
+                         "the matrix's alphabet")
+    return (upload(np.concatenate([t_flat, np.zeros(T_PAD, dtype=np.uint8)]),
+                   device),
+            upload(np.ascontiguousarray(t_off, dtype=np.int64), device))
+
+
 def device_pair_scores(q_list, biases, t_flat, t_off, cand_t, cand_off,
                        matrix_scores, gap_open: int = 16,
                        gap_extend: int = 2, device="cuda",
-                       expected=None) -> np.ndarray:
+                       expected=None, catalog=None) -> np.ndarray:
     """int64 exact SW score of every candidate pair, in pair order: query
     i against target cand_t[p] for p in cand_off[i]:cand_off[i + 1],
     target t being t_flat[t_off[t]:t_off[t + 1]]. The GPU scoring
@@ -784,26 +797,32 @@ def device_pair_scores(q_list, biases, t_flat, t_off, cand_t, cand_off,
     pairs go in runs of at most PAIR_CHUNK, each scored by sw_pairs.
     biases: one int bias per residue of each query, or None; expected:
     None, or the matrix's expected-score table, with which the profile
-    build computes the composition bias itself (biases then None). Its
-    steps run in the spans pair_profile, pair_upload, pair_score and
-    pair_read_back, none of which synchronises: a step's seconds are the
-    host's, up to the read-back, which waits for the card."""
+    build computes the composition bias itself (biases then None);
+    catalog: the SetDB of the targets, under which their copy on `device`
+    (pair_targets) is kept in the process's resident store
+    (ops/resident.py) and read by later calls, or None to upload them for
+    this call. Its steps run in the spans pair_profile, pair_upload,
+    pair_score and pair_read_back, none of which synchronises: a step's
+    seconds are the host's, up to the read-back, which waits for the
+    card."""
     dev = torch.device(device)
     n = len(cand_t)
     out = np.zeros(n, dtype=np.int64)
     if n == 0:
         return out
-    t_flat = np.ascontiguousarray(t_flat, dtype=np.uint8)
-    if len(t_flat) and int(t_flat.max()) >= matrix_scores.shape[1]:
-        raise ValueError("device_pair_scores: target letters must lie in "
-                         "the matrix's alphabet")
+
+    def build():
+        return pair_targets(t_flat, t_off, dev, matrix_scores.shape[1])
+
+    if catalog is None:
+        with span("pair_upload"):
+            t_seqs, t_off_d = build()
+    else:
+        from . import resident
+        t_seqs, t_off_d = resident.get(catalog, ("pairs",), dev, build)
     with span("pair_profile"):
         qp = pack_pair_queries(q_list, matrix_scores, biases, dev, expected)
     prof, q_stripe, q_len = qp["prof"], qp["q_stripe"], qp["q_len"]
-    with span("pair_upload"):
-        t_seqs = upload(np.concatenate(
-            [t_flat, np.zeros(T_PAD, dtype=np.uint8)]), dev)
-        t_off_d = upload(np.ascontiguousarray(t_off, dtype=np.int64), dev)
     cand_off = np.asarray(cand_off, dtype=np.int64)
     for p0 in range(0, n, PAIR_CHUNK):
         p1 = min(n, p0 + PAIR_CHUNK)

@@ -431,7 +431,8 @@ def _search_setdbs(query_db, target_db, params, keys):
             with span("dense_pass"):
                 ct, _, _, co = device_prefilter_arrays(
                     q_all, keys, None, masked[0], masked[1],
-                    params.prefilter, seed_m, ungapped_m, device=device)
+                    params.prefilter, seed_m, ungapped_m, device=device,
+                    catalog=target_db)
             cand_chunks = []
             for lo in range(0, len(keys), _BATCH_CHUNK):
                 hi = min(lo + _BATCH_CHUNK, len(keys))
@@ -465,7 +466,7 @@ def _search_setdbs(query_db, target_db, params, keys):
             with span("card_scoring"):
                 prot = _search_tpu(keys, t_aa, (t_flat, t_off),
                                    _joined_chunks(cand_chunks), q_all, m40,
-                                   evaluer, params)
+                                   evaluer, params, catalog=target_db)
         elif batched_aln_ok:
             with span("host_align"):
                 prot = _align_batch_chunks(cand_chunks)
@@ -896,13 +897,15 @@ def _pairs_on_card(params) -> bool:
 
 
 def _candidate_scores(q_list, t_aa, cand_t, cand_off, biases, m40,
-                      params, t_packed=None) -> np.ndarray:
+                      params, t_packed=None, catalog=None) -> np.ndarray:
     """Exact SW score of every (query, candidate) pair, int64 in pair
     order: B1's pair-list entry on a card (the pairs alone; t_packed =
     (t_flat, t_off), the search's packed targets, is built from t_aa when
     not given; each query's composition bias is computed with its
-    profile on the card, so `biases` is not read), B4 per shard on the
-    mesh, the torch scan on the CPU when the caller asked for it
+    profile on the card, so `biases` is not read; with `catalog`, the
+    targets' SetDB, their copy on the card is kept in the resident store,
+    ops/resident.py, and read there by later searches), B4 per shard on
+    the mesh, the torch scan on the CPU when the caller asked for it
     (params.device). The mesh and the scan take keys in blocks whose
     dense [block, union] matrix stays within _MAX_MATRIX_CELLS: at
     catalog scale (30k+ query sets, README.md:107-110) a single all-keys
@@ -922,7 +925,8 @@ def _candidate_scores(q_list, t_aa, cand_t, cand_off, biases, m40,
             q_list, None, t_packed[0], t_packed[1], cand_t, cand_off,
             m40.scores, go, ge, device="cuda",
             expected=(expected_score_tab(m40)
-                      if params.align.comp_bias_corr else None))
+                      if params.align.comp_bias_corr else None),
+            catalog=catalog)
     out = np.zeros(len(cand_t), dtype=np.int64)
     mesh = None
     if params.mesh is not None:
@@ -996,7 +1000,7 @@ def _align_survivors(keys, q_list, t_packed, cand_t, cand_off, keep, m40,
 
 
 def _search_tpu(keys, t_aa, t_packed, cand_arrays, q_all, m40, evaluer,
-                params):
+                params, catalog=None):
     """Device scoring engine: candidates come from the host prefilter
     (order-dependent integer heuristics, QueryMatcher.cpp:84-323) as raw
     arrays, cand_arrays=(cand_t, cand_off) with keys[i]'s candidates at
@@ -1029,7 +1033,7 @@ def _search_tpu(keys, t_aa, t_packed, cand_arrays, q_all, m40, evaluer,
     else:
         biases = [np.zeros(len(q), dtype=np.int64) for q in q_list]
     scores = _candidate_scores(q_list, t_aa, cand_t, cand_off, biases, m40,
-                               params, t_packed=t_packed)
+                               params, t_packed=t_packed, catalog=catalog)
     if batched:
         q_lens = np.fromiter((len(q) for q in q_list), dtype=np.int64,
                              count=len(q_list))

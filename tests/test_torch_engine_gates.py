@@ -65,11 +65,16 @@ def _route(monkeypatch, golden_dbs, viable, use_tpu=None):
         gate_calls.append((nk_total, t_res, has_idx))
         return viable
 
-    def match_pairs(*a, device):
+    def match_pairs(*a, device, **kw):
         devices.append(device)
-        return orig(*a, device="cpu")
+        return orig(*a, device="cpu", **kw)
+
+    def dense_target(*a, **kw):    # the target goes where match_pairs runs
+        return orig_target(*a[:3], "cpu", **kw)
 
     orig = prefilter_dense.match_pairs
+    orig_target = prefilter_dense.dense_target
+    monkeypatch.setattr(prefilter_dense, "dense_target", dense_target)
     monkeypatch.setattr(pm, "dense_prefilter_viable", gate)
     monkeypatch.setattr(pm, "_accelerator_present", lambda: True)
     monkeypatch.setattr(prefilter_dense, "match_pairs", match_pairs)
@@ -149,7 +154,7 @@ def _scoring_route(monkeypatch, golden_dbs, threshold=None):
         seen.append(cells)
         return gate(use_tpu, mesh, cells, accel_present)
 
-    def engine(keys, *a):
+    def engine(keys, *a, **kw):
         ran.append(len(keys))
         return {k: [] for k in keys}
 

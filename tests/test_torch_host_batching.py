@@ -73,7 +73,7 @@ def _search_inputs(corpora, name):
     if name not in _captured:
         got = []
 
-        def capture(*args):
+        def capture(*args, **kw):
             got.append(args)
             return {}
 

@@ -304,10 +304,11 @@ def _card_branch_on_cpu(monkeypatch):
     asked = []
     real = sw_packed.device_pair_scores
 
-    def on_cpu(q_list, biases, *a, device, expected):
+    def on_cpu(q_list, biases, *a, device, expected, **kw):
         assert biases is None and expected is not None
         asked.append(device)
-        return real(q_list, biases, *a, device="cpu", expected=expected)
+        return real(q_list, biases, *a, device="cpu", expected=expected,
+                    **kw)
 
     def dense(*a, **kw):
         raise AssertionError("the GPU branch built a [block x union] matrix")
