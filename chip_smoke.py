@@ -13,10 +13,10 @@ Phase 0  requires CUDA, prints the card (nvidia-smi) and builds the
          sw_dense (and the shuffles of sw_allpairs, whose pair-list tail
          passes each row's left edge between lanes), the float64 opcodes
          of pair_profile, the integer MMA
-         opcodes of prefilter_dense (mma.sync's IMMA, wgmma's IGMMA) and
+         opcodes of prefilter_dense (wgmma's IGMMA, mma.sync's IMMA) and
          the warp match and vote opcodes of prefilter_streams; it fails if
-         the emit kernel has no IMMA, if the counts kernel has no IGMMA or
-         any IMMA, or if the profile kernel has a DFMA.
+         the counts kernel has no IGMMA or any IMMA, or if the profile
+         kernel has a DFMA.
 Phase 1  holds B1's dense entry against its plain PyTorch version on the
          card, exactly, on the test corpora and on a production-shaped
          workload (the golden bundle's 305 query ORFs x 691 target ORFs,
@@ -63,25 +63,25 @@ Phase 3  builds a real-size corpus from the golden bundle and --seed
          the target axis (phase 3's query side against GATE_TARGET_COPIES
          mutated copies of each golden genome) both engines' medians
          beside the lines' predictions for its candidate cells.
-Phase 4  the dense prefilter's kernels (counts and emit) and its stream
-         kernels (csrc/prefilter_streams.cu: rank tables, key build, run
-         reduction): (a) counts and emit against their plain versions,
-         exactly (the emit against the plain emit of all rows and of the
-         compacted rows, as a set per tile), on the `cuda` cases of
+Phase 4  the dense prefilter's kernel (counts_kernel, the pass that
+         writes every hit) and its stream kernels
+         (csrc/prefilter_streams.cu: rank tables, key build, run
+         reduction): (a) the pass's hits against its plain version's as a
+         sorted set, exactly, also into a buffer of half the hits (run
+         again into one of exactly the hits), on the `cuda` cases of
          tests/test_torch_prefilter_dense.py, and match_pairs with small
-         chunk and emit bounds against the numpy oracle; the stream
+         chunk and buffer bounds against the numpy oracle; the stream
          kernels against their plain versions on those cases' own hits
          and on the random and seam cases of
          tests/test_torch_prefilter_streams.py (keys too wide for one
          sort, a run across many blocks, every query half among them);
          (b) at the production shape (phase 3's query k-mer rows x its
-         whole masked target; tools/time_counts_kernel.py times the counts
-         kernel there for two checkouts, parent against change), exact and
-         timed (each kernel alone on the
-         compacted rows, the emit also at other run caps; the compaction
-         and the emit's run starts apart; the counts' wrapper with the
-         compaction and the emit's with its run starts and check), with
-         each kernel's share of its bound, torch._int_mm on the same
+         whole masked target; tools/time_counts_kernel.py times the pass
+         there for two checkouts, parent against change), exact and timed
+         (the kernel alone on the compacted rows, the compaction apart,
+         the wrapper with the cursor's read-back and the hits' copy, the
+         plain version), with its share of its bound, torch._int_mm on the
+         same
          compacted int8 product in column blocks (the library yardstick;
          the port never calls it), two of the auto gate's constants (the
          whole dense pass's cells per second, and the fixed cost of a
@@ -94,11 +94,12 @@ Phase 4  the dense prefilter's kernels (counts and emit) and its stream
          scores); (c) `predictmatch` through the CLI on phase 3's corpus
          (its own DB copy) with --prefilter-engine device --use-tpu 0,
          in this process so that the launches are counted, whose text
-         must equal phase 3's host-engine text with every dense and
-         stream kernel launched, with where device_prefilter's time goes
-         (the dense pass, the query packing, the stream rebuild with
-         each kernel and the sort on the card, the batch finalize, the
-         rest) and the alignment; (d) the dense and host routes in fresh
+         must equal phase 3's host-engine text with the dense and every
+         stream kernel launched and no chunk run again, with where
+         device_prefilter's time goes (the dense pass, the query
+         packing, the stream rebuild with each kernel and the sort on the
+         card, the batch finalize, the rest) and the alignment; (d) the
+         dense and host routes in fresh
          processes, as a user runs them, at four shapes (phase 3's
          corpus, its first SMALL_SETS spacer sets against the same
          target, its query side GATE_BIG_COPIES times over, and its
@@ -135,11 +136,11 @@ Phase 6  the product surface as a user runs it, through the launcher
          (the prefilter and scoring engines the gates picked are
          printed), then in this process with --use-tpu 1 (B1's pair
          entry must launch) and with --prefilter-engine device
-         --use-tpu 0 (both B2 kernels must launch), each giving the
+         --use-tpu 0 (the B2 kernel must launch), each giving the
          golden result.tsv byte for byte;
-         (c) B2 counts and emit on each dense search's own inputs from
-         (b) (the golden query k-mer rows x the golden masked target),
-         exact against both plain versions; (d) searchnucl on
+         (c) B2's pass on each dense search's own inputs from (b) (the
+         golden query k-mer rows x the golden masked target), exact
+         against its plain version; (d) searchnucl on
          tests/blastn_fixtures.tar.gz's fix, fix2 and fix3 in fresh
          processes, each giving the reference binary's ref.m8 byte for
          byte; (e) each run's wall and the phase's own beside the card's
@@ -220,6 +221,7 @@ STREAM_FUNCTIONS = {"ranks": ("mark_halves_kernel", "slots_kernel",
                     "runs": ("memset", "run_count_kernel", "run_write_kernel")}
 LAUNCHER = os.path.join(REPO, "bin", "spacepharer_torch")
 BLASTN_FIXTURES = ("fix", "fix2", "fix3")   # tests/blastn_fixtures.tar.gz
+# the TPU path's hit extraction, which counts_kernel's pass took over
 EMIT_REPLACES = "spacepharer_tpu/ops/prefilter_dense.py:228"
 ONE_QUERY_REPLACES = "spacepharer_tpu/ops/sw_pallas.py:35"
 COPIES = 100          # mutated copies of each golden genome (phase 3)
@@ -246,14 +248,12 @@ P5_KERNEL_CALLS = 5   # phase 5(b): calls per timed kernel chain
 # SASS opcodes counted per kernel function in phase 0: the min/max family
 # of sw_dense and of sw_allpairs (their DPX add-max and three-way max among
 # them; and sw_allpairs' shuffles) and the integer MMA of prefilter_dense
-# (mma.sync's IMMA in emit, wgmma's IGMMA in counts)
+# (wgmma's IGMMA in counts_kernel; mma.sync's IMMA, which it must not use)
 SASS_COUNTED = {"sw_dense": re.compile(r"MNMX"),
                 "sw_allpairs": re.compile(r"MNMX|^SHFL"),
                 "pair_profile": re.compile(r"^D(ADD|MUL|FMA)|^MUFU"),
                 "prefilter_dense": re.compile(r"^IMMA|^IGMMA|^LDSM"),
                 "prefilter_streams": re.compile(r"^MATCH|^VOTE")}
-# phase 4(b): emit run caps timed beside prefilter_dense.EMIT_RUN
-EMIT_RUN_SWEEP = (16, 32, 64, 128, 256)
 # the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
@@ -1293,88 +1293,74 @@ def _dense_tests():
     return _test_module("test_torch_prefilter_dense")
 
 
-def _hit_err(a, b, tile_counts):
-    """max |a - b| over two emit outputs (gi, gj) of the same listed
-    tiles, each tile's hits compared as a sorted set; outputs of
-    different lengths fail."""
-    tile = np.repeat(np.arange(tile_counts.numel()),
-                     tile_counts.cpu().numpy())
+def _hit_err(a, b, positions):
+    """The entries at which two passes' hits (gi, gj), each sorted as one
+    key gi * positions + gj, differ (0: the same hits); hits of different
+    numbers fail."""
+    import torch
 
-    def per_tile(out):
-        gi = out[0].cpu().numpy().astype(np.int64)
-        gj = out[1].cpu().numpy().astype(np.int64)
-        if len(gi) != len(tile):
-            raise AssertionError(f"phase4: {len(gi)} hits emitted, the "
-                                 f"counts say {len(tile)}")
-        order = np.lexsort((gj, gi, tile))
-        return np.stack([gi[order], gj[order]])
+    def key(out):
+        return torch.sort(out[0].long() * positions + out[1].long()).values
 
-    if not len(tile):
-        return 0
-    return int(np.abs(per_tile(a) - per_tile(b)).max())
-
-
-def _emit_err(inputs, hit, emitted, nqt):
-    """_hit_err of an emit output against both plain versions, the plain
-    emit of all rows and that of the compacted rows."""
-    from spacepharer_tpu_torch.ops import prefilter_dense as pd
-    compacted = pd.compact_rows(inputs[0], inputs[1])
-    return max(_hit_err(emitted, pd.prefilter_dense_emit_plain(*inputs, *hit),
-                        hit[2]),
-               _hit_err(emitted, pd.prefilter_dense_emit_compacted_plain(
-                   compacted, *inputs[2:], nqt, *hit), hit[2]))
+    ka, kb = key(a), key(b)
+    if ka.numel() != kb.numel():
+        raise AssertionError(f"{ka.numel()} hits against {kb.numel()}")
+    return int((ka != kb).sum())
 
 
 def _dense_check(name, inputs, where="phase4"):
-    """Counts and emitted hits of one chunk, kernel vs both plain versions
-    (all rows, and the compacted rows) on the same card tensors. Returns
-    (counts error, emit error, hits)."""
+    """B2's pass on one chunk, the kernel (chunk_hits into the device's
+    hit buffer, and into a buffer of half the hits, which runs the chunk
+    again) against its plain version on the same card tensors. Returns
+    (max error, hits)."""
     from spacepharer_tpu_torch.ops import prefilter_dense as pd
-    counts = pd.prefilter_dense_counts(*inputs)
-    nqt = counts.shape[1]
-    c_err = max(int((counts - plain).abs().max()) for plain in (
-        pd.prefilter_dense_counts_plain(*inputs),
-        pd.prefilter_dense_counts_compacted_plain(
-            pd.compact_rows(inputs[0], inputs[1]), *inputs[2:], nqt)))
-    hit = pd.hit_tiles(counts)
-    e_err = _emit_err(inputs, hit, pd.prefilter_dense_emit(*inputs, *hit),
-                      nqt)
-    print(f"{where} {name}: {inputs[0].shape[0]} rows x "
-          f"{inputs[3].numel()} positions, {hit[3]} hits in "
-          f"{hit[0].numel()} tiles; counts vs both plain versions max err "
-          f"{c_err}, emitted vs both plain versions max err {e_err}")
-    if c_err or e_err:
+    dev = inputs[0].device
+    compacted = pd.compact_rows(inputs[0], inputs[1])
+    got = pd.chunk_hits(compacted, *inputs[2:], pd.hit_buffer(dev))
+    n = got[0].numel()
+    gi, gj, cursor = pd.new_hit_buffer(n, dev)
+    pd.prefilter_dense_hits_plain(compacted, *inputs[2:], gi, gj, cursor)
+    positions = inputs[3].numel()
+    err = max(_hit_err(got, (gi, gj), positions),
+              _hit_err(pd.chunk_hits(compacted, *inputs[2:],
+                                     pd.new_hit_buffer(n // 2, dev)),
+                       (gi, gj), positions),
+              abs(int(cursor.item()) - n))
+    print(f"{where} {name}: {inputs[0].shape[0]} rows x {positions} "
+          f"positions, {n} hits; kernel vs plain max err {err} (also run "
+          f"again from a buffer of {n // 2})")
+    if err:
         raise AssertionError(f"{where} {name}: kernel != plain")
-    return c_err, e_err, hit[3]
+    return err, n
 
 
 def phase4_cases(dev):
     """(a): the `cuda` cases of the dense prefilter's tests (the test
     corpora, a zero-hit input, a multi-chunk target with X letters and
-    ORF boundaries): counts and emit against their plain versions, and
-    match_pairs with small chunk and emit bounds against the numpy
-    oracle. Returns the max errors of counts and emit."""
+    ORF boundaries): the pass against its plain version, and match_pairs
+    with small chunk and buffer bounds against the numpy oracle. Returns
+    the max error."""
     from spacepharer_tpu_torch.ops import prefilter_dense as pd
     tests = _dense_tests()
-    errs = [0, 0]
+    worst = 0
     for name in tests.CUDA_CASES:
         params, seed_m, batch, flat, bval = tests.cuda_case(name)
         thr = params.kmer_threshold()
-        c_err, e_err, n = _dense_check(name, pd.dense_inputs(
+        err, n = _dense_check(name, pd.dense_inputs(
             batch, flat, bval, seed_m.scores, thr, dev))
-        errs = [max(errs[0], c_err), max(errs[1], e_err)]
+        worst = max(worst, err)
         if (n == 0) != (name == "zero_hits"):
             raise AssertionError(f"phase4 {name}: {n} hits")
-        got, launched = tests.match_pairs_small_bounds(batch, flat, bval,
-                                                       seed_m.scores, thr)
+        got, (launched, reruns) = tests.match_pairs_small_bounds(
+            batch, flat, bval, seed_m.scores, thr)
         same = got == tests.pairs(*pd.match_pairs_numpy(
             batch, flat, bval, seed_m.scores, thr))
-        print(f"phase4 {name}: match_pairs on the card (counts x"
-              f"{launched[0]}, emit x{launched[1]}) equals the numpy "
+        print(f"phase4 {name}: match_pairs on the card ({launched} "
+              f"launches, {reruns} chunks run again) equals the numpy "
               f"oracle: {same}")
         if not same:
             raise AssertionError(f"phase4 {name}: match_pairs != oracle")
-    return errs
+    return worst
 
 
 def phase4_stream_cases():
@@ -1592,30 +1578,6 @@ def _rank_sort_ms(seed, slot_of):
     return ms
 
 
-def _chain(fn, inputs, rest, n):
-    """Mean ms of n data-dependent calls (each call's thresholds depend
-    on the previous call's output), timed with CUDA events and ended by
-    a host fetch; and the last output. Phase 4(a) has launched both
-    kernels already, so no call pays a module load."""
-    import torch
-
-    def first(out):
-        return (out[0] if isinstance(out, tuple) else out).flatten()[:1].sum()
-
-    qexp, thr = inputs[0], inputs[1]
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    out = None
-    start.record()
-    for _ in range(n):
-        t = thr if out is None else thr + (first(out) & 0).to(torch.int32)
-        out = fn(qexp, t, *inputs[2:], *rest)
-    stop.record()
-    first(out).item()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / n, out
-
-
 def production_dense_inputs(paths):
     """(params, seed matrix, query ORFs, keys, batch, masked flat target,
     its starts, boundary validity): phase 4(b)'s dense-pass inputs from
@@ -1668,88 +1630,50 @@ def phase4_production(dev, p3, clock_hz):
           f"k-mer rows ({int(batch.kmer_valid.sum())} valid) x {len(flat)} "
           f"target residues = {cells} dense cells")
 
-    w_ms, c_wrapped = _chain(pd.prefilter_dense_counts, inputs, (),
-                             P4_KERNEL_CALLS)
     t0 = time.perf_counter()
     compacted = pd.compact_rows(inputs[0], inputs[1])
     torch.cuda.synchronize()
     compact_ms = (time.perf_counter() - t0) * 1e3
-    k_ms, c_kernel = _kernel_ms(pd, pd.prefilter_dense_counts,
-                                inputs + (compacted,), P4_KERNEL_CALLS)
-    p_ms, c_plain = _chain(pd.prefilter_dense_counts_plain, inputs, (), 1)
-    c_err = max(int((c_kernel - c_plain).abs().max()),
-                int((c_wrapped - c_plain).abs().max()))
-    hit = pd.hit_tiles(c_kernel)
-    nqt = c_kernel.shape[-1]
-    runs_ms = _host_ms(pd.emit_runs, (hit[0], nqt, pd.EMIT_RUN),
-                       P4_KERNEL_CALLS)
-    e_k_ms, e_kernel = _kernel_ms(pd, pd.prefilter_dense_emit,
-                                  inputs + tuple(hit) + (compacted,),
-                                  P4_KERNEL_CALLS)
-    e_w_ms, _ = _chain(pd.prefilter_dense_emit, inputs,
-                       tuple(hit) + (compacted,), P4_KERNEL_CALLS)
-    default_run, sweep = pd.EMIT_RUN, {}
-    try:
-        for run in EMIT_RUN_SWEEP:
-            pd.EMIT_RUN = run
-            ms, out = _kernel_ms(pd, pd.prefilter_dense_emit,
-                                 inputs + tuple(hit) + (compacted,),
-                                 P4_KERNEL_CALLS)
-            sweep[run] = (ms, out)
-    finally:
-        pd.EMIT_RUN = default_run
-    e_p_ms, e_plain = _chain(pd.prefilter_dense_emit_plain, inputs, hit, 1)
+    buf = pd.hit_buffer(dev)
+    k_ms, _ = _kernel_ms(pd, pd.prefilter_dense_hits,
+                         (compacted, *inputs[2:], *buf), P4_KERNEL_CALLS)
+    n = int(buf[2].item())
+    w_ms = _host_ms(pd.chunk_hits, (compacted, *inputs[2:], buf),
+                    P4_KERNEL_CALLS)
+    got = pd.chunk_hits(compacted, *inputs[2:], buf)
+    plain = pd.new_hit_buffer(n, dev)
     t0 = time.perf_counter()
-    e_cplain = pd.prefilter_dense_emit_compacted_plain(
-        compacted, *inputs[2:], nqt, *hit)
-    e_cp_ms = (time.perf_counter() - t0) * 1e3
-    e_err = max([_hit_err(e_kernel, e_cplain, hit[2])]
-                + [_hit_err(out, e_plain, hit[2])
-                   for out in [e_kernel] + [o for _, o in sweep.values()]])
-    print(f"phase4 production counts: {compacted[0].shape[0]} compacted "
+    pd.prefilter_dense_hits_plain(compacted, *inputs[2:], *plain)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    err = max(_hit_err(got, plain[:2], inputs[3].numel()),
+              abs(int(plain[2].item()) - n))
+    print(f"phase4 production pass: {compacted[0].shape[0]} compacted "
           f"rows ({compacted[0].shape[0] // pd.ROW_TILE} stages) x "
-          f"{inputs[3].numel() // pd.TILE_T} target tiles; kernel alone "
-          f"{k_ms} ms -> {cells / (k_ms * 1e-3):.6g} "
-          f"cells/s; wrapper with the row compaction {w_ms} ms (one "
-          f"compaction {compact_ms:.3f} ms); plain {p_ms} ms -> "
-          f"{cells / (p_ms * 1e-3):.6g} cells/s; max|kernel-plain| = "
-          f"{c_err}")
-    print(f"phase4 production emit: {hit[3]} hits in {hit[0].numel()} of "
-          f"{c_kernel.numel()} tiles; kernel alone {e_k_ms} ms at runs of "
-          f"<= {default_run} hit tiles; run starts {runs_ms:.3f} ms; "
-          f"wrapper with its run starts and check {e_w_ms} ms; plain "
-          f"{e_p_ms} ms, plain on the compacted rows {e_cp_ms:.3f} ms; "
-          f"emitted vs both plain versions max err {e_err}")
-    print("phase4 production emit alone by run cap: " + ", ".join(
-        f"{run}: {ms} ms" for run, (ms, _) in sweep.items()))
-    if c_err or e_err:
+          f"{inputs[3].numel() // pd.TILE_T} target tiles, {n} hits; "
+          f"kernel alone {k_ms} ms -> {cells / (k_ms * 1e-3):.6g} cells/s; "
+          f"wrapper with the cursor's read-back and the hits' copy {w_ms} "
+          f"ms (one compaction {compact_ms:.3f} ms); plain {p_ms} ms -> "
+          f"{cells / (p_ms * 1e-3):.6g} cells/s; kernel vs plain max err "
+          f"{err}")
+    if err:
         raise AssertionError("phase4 production: kernel != plain")
-    del c_plain, e_plain, e_cplain, c_wrapped, sweep
+    del got, plain
     lib_ms, lib_width = _int_mm_ms(compacted[0], inputs)
-    print(f"phase4 production counts' library yardstick: torch._int_mm of "
+    print(f"phase4 production pass's library yardstick: torch._int_mm of "
           f"the {compacted[0].shape[0]} compacted int8 rows x the one-hot "
           f"target expansion ({inputs[3].numel()} positions, in blocks of "
           f"{lib_width}) {lib_ms:.3f} ms (the product alone, int32 out; "
-          f"the counts kernel alone {k_ms} ms)")
+          f"the kernel alone {k_ms} ms)")
     del compacted
-    # the bounds' work: the int8 product over the rows that can match
-    # (the kernels skip the rest), over all positions for counts and over
-    # the hit tiles for emit
+    # the bound's work: the int8 product over the rows that can match
+    # (the kernel skips the rest) and every position; the hits written
     valid = inputs[1] <= pd.N_OFF * 127
-    per_qt = torch.zeros(nqt, dtype=torch.int64, device=dev).index_add_(
-        0, torch.arange(valid.numel(), device=dev) // pd.TILE_Q,
-        valid.long())
-    in_bytes = _nbytes(*inputs[:4])
-    counts_work = (in_bytes + _nbytes(c_kernel),
-                   int(valid.sum()) * inputs[3].numel() * 2 * pd.KDIM)
-    emit_work = (in_bytes + _nbytes(*hit[:3], *e_kernel),
-                 int(per_qt[hit[0] % nqt].sum()) * pd.TILE_T * 2 * pd.KDIM)
-    torch.cuda.synchronize()
-    for name, ms, work in (("counts", k_ms, counts_work),
-                           ("emit", e_k_ms, emit_work)):
-        bound, bound_by = _bound(*work, INT8_OPS_PER_S)
-        print(f"phase4 production {name} share of bound: {bound:.6g} ms "
-              f"({bound_by}) / {ms} ms alone = {bound / ms:.4f}")
+    work = (_nbytes(*inputs[:4]) + n * 8 + 8,
+            int(valid.sum()) * inputs[3].numel() * 2 * pd.KDIM)
+    bound, bound_by = _bound(*work, INT8_OPS_PER_S)
+    print(f"phase4 production pass share of bound: {bound:.6g} ms "
+          f"({bound_by}) / {k_ms} ms alone = {bound / k_ms:.4f}")
 
     # the gate's constants: the whole dense pass at this shape, in cells
     # as the gate counts them (query k-mers x target residues), and the
@@ -1775,10 +1699,8 @@ def phase4_production(dev, p3, clock_hz):
     # kernels first)
     phase3_device_times(p3, clock_hz)
     streams = phase4_streams(batch, gi, gj, flat, starts, seed_m.scores)
-    return {"counts": (c_err, k_ms, p_ms), "emit": (e_err, e_k_ms, e_p_ms),
-            "library_ms": {"counts": lib_ms, "emit": None},
-            "fixed_s": fixed, "cells_per_s": rate,
-            "work": {"counts": counts_work, "emit": emit_work},
+    return {"hits": (err, k_ms, p_ms), "library_ms": lib_ms,
+            "fixed_s": fixed, "cells_per_s": rate, "work": work,
             "streams": streams}
 
 
@@ -1876,11 +1798,10 @@ def phase4_predictmatch(p3, tmp):
         pd.sort_keys, pd.streams_events = sort_keys, None
     wall = time.perf_counter() - t0
     launches = {k[:-len("_launches")]: v for k, v in _since(
-        before, "prefilter_dense_counts_launches",
-        "prefilter_dense_emit_launches",
+        before, "prefilter_dense_hits_launches",
         *(f"{name}_launches" for name, _ in STREAM_KERNELS)).items()}
-    dense_cells = _since(before, "prefilter_dense_counts_cells")[
-        "prefilter_dense_counts_cells"]
+    dense = _since(before, "prefilter_dense_hits_cells", "dense_hits",
+                   "dense_hit_reruns")
     after = timings()
     if rc != 0:
         raise AssertionError(f"phase4 dense predictmatch exited {rc}")
@@ -1891,8 +1812,11 @@ def phase4_predictmatch(p3, tmp):
           f"{after.get('search', 0) - before.get('search', 0):.3f} s, then "
           f"search_rev "
           f"{after.get('search_rev', 0) - before.get('search_rev', 0):.3f} "
-          f"s); launches {launches}; dense cells on the card {dense_cells}; "
-          f"text identical to the host engine's: {same}")
+          f"s); launches {launches}; dense cells on the card "
+          f"{dense['prefilter_dense_hits_cells']}, hits "
+          f"{dense['dense_hits']}, chunks run again "
+          f"{dense['dense_hit_reruns']}; text identical to the host "
+          f"engine's: {same}")
     dp = split.get("device_prefilter", 0.0)
     rebuild = split.get("stream rebuild", 0.0)
     on_card = [(k, card_ms[c] / 1e3) for k, c in (
@@ -1915,6 +1839,9 @@ def phase4_predictmatch(p3, tmp):
     if min(launches.values()) <= 0:
         raise AssertionError("phase4: a dense or stream kernel was never "
                              "launched")
+    if dense["dense_hit_reruns"]:
+        raise AssertionError("phase4: a dense chunk overflowed the hit "
+                             "buffer")
     return launches
 
 
@@ -2430,7 +2357,7 @@ def _same_bytes(path, ref, what):
 def phase6(dev, golden, tmp, smi):
     """The product surface through the launcher, (a) to (e) of the
     module's docstring; smi is the card's name and power limit. Returns
-    the max errors of B2 counts and emit at the golden shape."""
+    the max error of B2's pass at the golden shape."""
     import torch
     from spacepharer_tpu_torch.io.setdb import SetDB
     from spacepharer_tpu_torch.logging import timings
@@ -2496,8 +2423,7 @@ def phase6(dev, golden, tmp, smi):
             launches[label] = {
                 k[:-len("_launches")]: v for k, v in _since(
                     before, "sw_pairs_launches",
-                    "prefilter_dense_counts_launches",
-                    "prefilter_dense_emit_launches",
+                    "prefilter_dense_hits_launches",
                     *(f"{n}_launches" for n, _ in STREAM_KERNELS)).items()}
     finally:
         pd.match_pairs = match_pairs
@@ -2507,23 +2433,22 @@ def phase6(dev, golden, tmp, smi):
         raise AssertionError("phase6: easy-predict --use-tpu 1 never "
                              "launched the pair kernel")
     if min(launches["dense"][name] for name in (
-            "prefilter_dense_counts", "prefilter_dense_emit",
-            *(n for n, _ in STREAM_KERNELS))) <= 0:
+            "prefilter_dense_hits", *(n for n, _ in STREAM_KERNELS))) <= 0:
         raise AssertionError("phase6: easy-predict --prefilter-engine "
-                             "device never launched both B2 kernels and "
+                             "device never launched the B2 kernel and "
                              "the stream kernels")
 
-    # (c) B2 counts and emit on each dense search's own inputs (the
-    # golden query k-mer rows x the golden masked target, its ragged
-    # last tile included), kernel vs both plain versions
-    if len(recorded) != launches["dense"]["prefilter_dense_counts"]:
+    # (c) B2's pass on each dense search's own inputs (the golden query
+    # k-mer rows x the golden masked target, its ragged last tile
+    # included), kernel vs plain
+    if len(recorded) != launches["dense"]["prefilter_dense_hits"]:
         raise AssertionError(f"phase6: {len(recorded)} dense searches, "
                              f"{launches['dense']} launches")
-    errs = [0, 0]
+    worst = 0
     for i, args in enumerate(recorded):
-        c_err, e_err, _ = _dense_check(f"golden dense search {i}",
-                                       pd.dense_inputs(*args, dev), "phase6")
-        errs = [max(errs[0], c_err), max(errs[1], e_err)]
+        err, _ = _dense_check(f"golden dense search {i}",
+                              pd.dense_inputs(*args, dev), "phase6")
+        worst = max(worst, err)
     torch.cuda.synchronize()
 
     blastn = os.path.join(base, "blastn")
@@ -2542,7 +2467,7 @@ def phase6(dev, golden, tmp, smi):
     print("phase6 walls s: " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in walls.items())
           + f"; phase 6 in all {time.perf_counter() - t_phase:.3f} ({smi})")
-    return errs
+    return worst
 
 
 def _kernel_name(mangled):
@@ -2597,10 +2522,9 @@ def _sass_opcodes(path):
 def _build_all():
     """Build every kernel library at once (one nvcc each), print each
     one's ptxas registers and spills, and the counts of SASS_COUNTED's
-    opcodes per kernel function; fail unless the emit kernel runs on the
-    integer tensor cores (IMMA) and the counts kernel on warpgroup
-    products alone (IGMMA, no IMMA), or if the profile kernel has a DFMA
-    (where cuobjdump can read it). Returns {library: {function: {opcode:
+    opcodes per kernel function; fail unless the counts kernel runs on
+    warpgroup products alone (IGMMA, no IMMA), or if the profile kernel
+    has a DFMA (where cuobjdump can read it). Returns {library: {function: {opcode:
     count}}}."""
     from spacepharer_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
@@ -2625,10 +2549,6 @@ def _build_all():
                                 if pattern.search(op)}
             print(f"phase0 SASS {name} {func}: {sum(ops.values())} "
                   f"instructions; {sass[name][func]}")
-    emit = sass.get("prefilter_dense", {}).get("emit_kernel", {})
-    if not any(op.startswith("IMMA") for op in emit):
-        raise AssertionError("phase0: no IMMA in emit_kernel's SASS (or its "
-                             "SASS could not be read)")
     # counts runs on warpgroup products (wgmma) alone
     counts = sass.get("prefilter_dense", {}).get("counts_kernel", {})
     if (not any(op.startswith("IGMMA") for op in counts)
@@ -2710,7 +2630,7 @@ def main():
         phase2(golden, tmp)
         p3 = phase3(golden, tmp, args.seed, clock_hz)
         walk = phase3_gates(p3, golden, args.seed)
-        case_errs = phase4_cases(dev)
+        case_err = phase4_cases(dev)
         stream_case_err = phase4_stream_cases()
         p4 = phase4_production(dev, p3, clock_hz)
         p4_launches = phase4_predictmatch(p3, tmp)
@@ -2725,7 +2645,7 @@ def main():
             p5_before, "sw_dense_one_query_launches",
             "sw_dense_batch_launches").items()}
         phase5_entry_points(golden, tmp)
-        p6_errs = phase6(dev, golden, tmp, smi)
+        p6_err = phase6(dev, golden, tmp, smi)
     print(f"chip_smoke: phases 0-6 in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     sw_src, sw_replaces = KERNELS["sw_allpairs"]
@@ -2762,19 +2682,15 @@ def main():
                "plain_ms": p3["profile"]["plain_ms"],
                "bound_ms": p3["profile"]["bound"][0],
                "bound_by": p3["profile"]["bound"][1], "library_ms": None}]
-    for i, (name, replaces) in enumerate((
-            ("prefilter_dense_counts", pd_replaces),
-            ("prefilter_dense_emit", EMIT_REPLACES))):
-        part = name.rsplit("_", 1)[1]
-        err, ms, plain_ms = p4[part]
-        bound, bound_by = _bound(*p4["work"][part], INT8_OPS_PER_S)
-        report.append({"name": name, "route": "cuda", "source": pd_src,
-                       "replaces": replaces, "launches": p4_launches[name],
-                       "max_abs_err": max(case_errs[i], err, p6_errs[i]),
-                       "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": bound_by,
-                       "library_ms": p4["library_ms"][part]})
+    err, ms, plain_ms = p4["hits"]
+    bound, bound_by = _bound(*p4["work"], INT8_OPS_PER_S)
+    report.append({"name": "prefilter_dense_hits", "route": "cuda",
+                   "source": pd_src,
+                   "replaces": f"{pd_replaces}, {EMIT_REPLACES}",
+                   "launches": p4_launches["prefilter_dense_hits"],
+                   "max_abs_err": max(case_err, err, p6_err), "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": bound_by, "library_ms": p4["library_ms"]})
     ps_src, ps_replaces = KERNELS["prefilter_streams"]
     for name, part in STREAM_KERNELS:
         err, ms, plain_ms, (bound, bound_by), lib_ms = p4["streams"][part]

@@ -30,20 +30,18 @@ max_seqs selection; one threaded native call over every key), so the
 output is byte-identical to the host engine, and the device path needs
 no postings index: only the tantan-masked flat target.
 
-On the card two hand-written kernels (csrc/prefilter_dense.cu) do the
-dense work, both as an int8 tensor-core product over the rows that can
-match (compacted by compact_rows): prefilter_dense_counts counts the hits
-of every (target tile, query tile) pair, and prefilter_dense_emit
-recomputes only the tiles with hits, on their own compacted rows, and
-writes each hit's coordinates. Each has a plain PyTorch version beside it
-(a one-hot matmul), which the wrappers run on CPU tensors.
+On the card one hand-written kernel (csrc/prefilter_dense.cu) does the
+dense work in one pass, as an int8 tensor-core product over the rows that
+can match (compacted by compact_rows): prefilter_dense_hits writes every
+hit's coordinates into an append buffer as it finds them. Its plain
+PyTorch version beside it (a one-hot matmul) runs on CPU tensors.
 
 What the TPU version needed and this one does not: the fixed 8192-tile
 target chunk and the power-of-two query-tile bucket (one compiled Mosaic
 grid shape), the 32k query-row cap (a Mosaic compile once stalled on
-more), and the host-side extraction of hit masks in batches of 64 tiles.
-Chunks here are bounded by card memory alone (MAX_Q_ROWS, MAX_TILES,
-MAX_EMIT_HITS).
+more), and the per-tile hit counts whose tiles were computed again, to
+extract their hit masks on the host in batches of 64 tiles. Chunks here
+are bounded by card memory alone (MAX_Q_ROWS, MAX_CHUNK, HIT_CAPACITY).
 """
 import ctypes
 from dataclasses import dataclass
@@ -63,32 +61,30 @@ TILE_T = 512   # target positions per tile
 KDIM = 128     # Qexp columns (6 * 21 = 126 used)
 N_OFF = 6      # offsets the kernel reads (fewer: zero Qexp blocks)
 MAX_K = N_OFF * 127   # no K of an int8 Qexp exceeds this: larger thr never hit
-ROW_TILE = 128        # compacted rows per row tile of the counts kernel
-# most hit tiles of one target tile that one block of the emit kernel
-# takes (at most the kernel's kMaxRun, 256); output never depends on it
-EMIT_RUN = 64
+ROW_TILE = 128        # compacted rows per stage of the kernel
 
-# Card-memory bounds of the kernel path; output never depends on them.
-# A query chunk holds Qexp + thr on the card (132 B per row: 138 MB at
-# MAX_Q_ROWS). A target chunk is sized so that its tile counts, the
-# hit-tile list and its prefix sums (<= 28 B per tile) stay under 470 MB,
-# and one emit launch writes at most MAX_EMIT_HITS hit coordinates
-# (8 B each: 537 MB). Together well under 2 GB of the card's 80 GB.
+# Memory bounds of the dense pass; output never depends on them. A query
+# chunk holds Qexp + thr on the card (132 B per row: 138 MB at
+# MAX_Q_ROWS). A target chunk covers at most MAX_CHUNK positions, so that
+# the temporaries of its tval (prep: about 18 B a position) stay near 1.2
+# GB; its positions fit int32 with room to spare. The hit buffer holds
+# HIT_CAPACITY hits (8 B each: 537 MB), allocated once per device
+# (hit_buffer); a chunk with more hits runs again into a buffer of
+# exactly its hits.
 MAX_Q_ROWS = 1 << 20
-MAX_TILES = 1 << 24
-MAX_EMIT_HITS = 1 << 26
+MAX_CHUNK = 1 << 26
+HIT_CAPACITY = 1 << 26
 # the plain version's K block per matmul (float32 elements: 256 MB;
 # at least one tile of positions)
 PLAIN_MAX_ELEMS = 1 << 26
 
-# The wrappers count their launches in the registry (logging.count):
-# prefilter_dense_counts_launches and prefilter_dense_emit_launches, and
-# in prefilter_dense_counts_cells the cells (query k-mer rows x target
-# positions) the counts kernel covered; the plain CPU path counts in none
-# of them.
-# None, or a list to which each counts or emit call appends a (start,
-# stop) pair of CUDA events recorded around its kernel launch alone (the
-# row compaction, the emit's run starts and its check left out)
+# The wrapper counts its launches in the registry (logging.count):
+# prefilter_dense_hits_launches, and in prefilter_dense_hits_cells the
+# cells (compacted rows x target positions) the kernel covered; the plain
+# CPU path counts in neither.
+# None, or a list to which each kernel call appends a (start, stop) pair
+# of CUDA events recorded around its launch alone (the cursor's zeroing
+# included, the row compaction and the read-back left out)
 launch_events = None
 
 
@@ -217,10 +213,11 @@ def match_pairs_numpy(batch: QueryKmerBatch, t_flat: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# the dense pass: shared layout, plain versions, kernel wrappers
+# the dense pass: shared layout, plain version, kernel wrapper
 # ---------------------------------------------------------------------------
 #
-# Layout shared by the kernels and their plain versions:
+# Layout shared by the kernel and its plain version (the kernel takes the
+# rows compacted by compact_rows):
 #
 #   qexp    int8  [R, KDIM]     build_qexp rows, R a multiple of TILE_Q
 #   thr     int32 [R]           thr_i; THR_INVALID on invalid and pad rows
@@ -230,9 +227,6 @@ def match_pairs_numpy(batch: QueryKmerBatch, t_flat: np.ndarray,
 #                               C a multiple of TILE_T
 #   offs    N_OFF ints          the spaced offsets, padded with 0 (the
 #                               Qexp blocks past the real ones are zero)
-#
-# Tile (tt, qt) covers rows qt*TILE_Q.. and positions tt*TILE_T..; its
-# flat id is tt * nqt + qt, the index into counts.flatten().
 
 
 def pad_offsets(offsets) -> tuple:
@@ -278,133 +272,66 @@ def _plain_blocks(qexp, thr, letters, tval, offsets):
         yield c0, (K >= thr[:, None]) & (tval[None, c0:c0 + w] != 0)
 
 
-def prefilter_dense_counts_plain(qexp, thr, letters, tval, offsets):
-    """Plain PyTorch version of the counts kernel: int32 [ntt, nqt] hits
-    per tile, same inputs (the shared layout above), on their device."""
-    R, C = qexp.shape[0], tval.numel()
-    nqt, ntt = R // TILE_Q, C // TILE_T
-    out = torch.empty((ntt, nqt), dtype=torch.int32, device=qexp.device)
-    for c0, mask in _plain_blocks(qexp, thr, letters, tval, offsets):
-        w = mask.shape[1]
-        per = mask.reshape(nqt, TILE_Q, w // TILE_T, TILE_T).sum(dim=(1, 3))
-        out[c0 // TILE_T:(c0 + w) // TILE_T] = per.T.to(torch.int32)
-    return out
-
-
 def compact_rows(qexp, thr):
-    """(qexp_c int8 [Rc, KDIM], thr_c int32 [Rc], q_tile int32 [Rc],
-    row_id int32 [Rc], qt_start int32 [nqt + 1]): the rows that can match
-    (thr <= MAX_K), in order, with their thresholds, their query tiles
-    (row // TILE_Q) and their row indices, padded to a positive multiple
-    of ROW_TILE with rows of threshold THR_INVALID (query tile 0, row 0);
-    query tile qt owns the compacted rows qt_start[qt] ..
-    qt_start[qt + 1] - 1. On qexp's device. The kernels read this form."""
+    """(qexp_c int8 [Rc, KDIM], thr_c int32 [Rc], row_id int32 [Rc]): the
+    rows that can match (thr <= MAX_K), in order, with their thresholds
+    and their row indices, padded to a positive multiple of ROW_TILE with
+    rows of threshold THR_INVALID (row 0). On qexp's device. The kernel
+    reads this form."""
     dev = qexp.device
     keep = torch.nonzero(thr <= MAX_K).flatten()
     n = keep.numel()
     rc = max(-(-n // ROW_TILE), 1) * ROW_TILE
     qexp_c = torch.zeros((rc, KDIM), dtype=torch.int8, device=dev)
     thr_c = torch.full((rc,), THR_INVALID, dtype=torch.int32, device=dev)
-    q_tile = torch.zeros(rc, dtype=torch.int32, device=dev)
     row_id = torch.zeros(rc, dtype=torch.int32, device=dev)
     qexp_c[:n] = qexp[keep]
     thr_c[:n] = thr[keep]
-    q_tile[:n] = (keep // TILE_Q).to(torch.int32)
     row_id[:n] = keep.to(torch.int32)
-    qt_start = torch.searchsorted(
-        q_tile[:n], torch.arange(qexp.shape[0] // TILE_Q + 1,
-                                 dtype=torch.int32, device=dev),
-        out_int32=True)
-    return qexp_c, thr_c, q_tile, row_id, qt_start
+    return qexp_c, thr_c, row_id
 
 
-def prefilter_dense_counts_compacted_plain(compacted, letters, tval,
-                                           offsets, nqt: int):
-    """Plain PyTorch version of the counts kernel on its own input, the
-    compact_rows form: int32 [ntt, nqt], each compacted row's hits per
-    target tile added into its query tile's count. Equals
-    prefilter_dense_counts_plain on the rows compact_rows was given."""
-    qexp_c, thr_c, q_tile, _, _ = compacted
-    ntt = tval.numel() // TILE_T
-    out = torch.zeros((ntt, nqt), dtype=torch.int64, device=qexp_c.device)
+def new_hit_buffer(capacity: int, device):
+    """(gi int32 [capacity], gj int32 [capacity], cursor int64 [1]): an
+    append buffer of the dense pass on `device`."""
+    return (torch.empty(capacity, dtype=torch.int32, device=device),
+            torch.empty(capacity, dtype=torch.int32, device=device),
+            torch.zeros(1, dtype=torch.int64, device=device))
+
+
+_hit_buffers = {}   # device -> the buffer of HIT_CAPACITY hits
+
+
+def hit_buffer(device):
+    """The append buffer of HIT_CAPACITY hits on `device` (new_hit_buffer),
+    allocated at its first use and kept for every later chunk, search and
+    call of the process."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:   # one buffer per card
+        dev = torch.device("cuda", torch.cuda.current_device())
+    buf = _hit_buffers.get(dev)
+    if buf is None or buf[0].numel() != HIT_CAPACITY:
+        buf = _hit_buffers[dev] = new_hit_buffer(HIT_CAPACITY, dev)
+    return buf
+
+
+def prefilter_dense_hits_plain(compacted, letters, tval, offsets, gi, gj,
+                               cursor):
+    """Plain PyTorch version of the kernel, on its inputs' device: every
+    hit of the compacted rows (compact_rows) against the target chunk
+    (letters, tval; the shared layout above) by a one-hot matmul and
+    torch.nonzero. cursor (int64 [1]) gets the number of hits; hit k,
+    for k below gi's length, is written at gi[k] (its row's original id)
+    and gj[k] (its chunk-relative position); the rest are counted only."""
+    qexp_c, thr_c, row_id = compacted
+    cap, n = gi.numel(), 0
     for c0, mask in _plain_blocks(qexp_c, thr_c, letters, tval, offsets):
-        per = mask.reshape(mask.shape[0], -1, TILE_T).sum(dim=2)  # [Rc, nt]
-        out[c0 // TILE_T:c0 // TILE_T + per.shape[1]].index_add_(
-            1, q_tile.long(), per.T)
-    return out.to(torch.int32)
-
-
-def prefilter_dense_emit_plain(qexp, thr, letters, tval, offsets, tiles,
-                               base, tile_counts, total: int):
-    """Plain PyTorch version of the emit kernel: (gi, gj) int32 [total],
-    the hits of the listed tiles (flat ids `tiles`), tile k's hits at
-    base[k] .. base[k] + tile_counts[k] - 1, row-major within a tile."""
-    R, C = qexp.shape[0], tval.numel()
-    nqt = R // TILE_Q
-    dev = qexp.device
-    slot_of = torch.full(((C // TILE_T) * nqt,), -1, dtype=torch.int64,
-                         device=dev)
-    slot_of[tiles] = torch.arange(tiles.numel(), device=dev)
-    gis, gjs, slots = [], [], []
-    for c0, mask in _plain_blocks(qexp, thr, letters, tval, offsets):
-        gi, gj = torch.nonzero(mask, as_tuple=True)
-        gj = gj + c0
-        s = slot_of[(gj // TILE_T) * nqt + gi // TILE_Q]
-        keep = s >= 0
-        gis.append(gi[keep])
-        gjs.append(gj[keep])
-        slots.append(s[keep])
-    gi, gj, s = torch.cat(gis), torch.cat(gjs), torch.cat(slots)
-    if gi.numel() != total:
-        raise RuntimeError(f"prefilter_dense_emit_plain: {gi.numel()} hits "
-                           f"in the listed tiles, the counts say {total}")
-    order = torch.sort(s, stable=True).indices
-    return gi[order].to(torch.int32), gj[order].to(torch.int32)
-
-
-def prefilter_dense_emit_compacted_plain(compacted, letters, tval, offsets,
-                                         nqt: int, tiles, base, tile_counts,
-                                         total: int):
-    """Plain PyTorch version of the emit kernel on its own input, the
-    compact_rows form of nqt query tiles: (gi, gj) int32 [total], the
-    hits of the listed tiles, tile k's at base[k] .. base[k] +
-    tile_counts[k] - 1, row-major within a tile. Equals
-    prefilter_dense_emit_plain on the rows compact_rows was given."""
-    qexp_c, thr_c, q_tile, row_id, _ = compacted
-    dev = qexp_c.device
-    slot_of = torch.full(((tval.numel() // TILE_T) * nqt,), -1,
-                         dtype=torch.int64, device=dev)
-    slot_of[tiles] = torch.arange(tiles.numel(), device=dev)
-    gis, gjs, slots = [], [], []
-    for c0, mask in _plain_blocks(qexp_c, thr_c, letters, tval, offsets):
-        ci, gj = torch.nonzero(mask, as_tuple=True)
-        gj = gj + c0
-        s = slot_of[(gj // TILE_T) * nqt + q_tile[ci].long()]
-        keep = s >= 0
-        gis.append(row_id[ci[keep]].long())
-        gjs.append(gj[keep])
-        slots.append(s[keep])
-    gi, gj, s = torch.cat(gis), torch.cat(gjs), torch.cat(slots)
-    if gi.numel() != total:
-        raise RuntimeError(f"prefilter_dense_emit_compacted_plain: "
-                           f"{gi.numel()} hits in the listed tiles, the "
-                           f"counts say {total}")
-    order = torch.sort(s, stable=True).indices
-    return gi[order].to(torch.int32), gj[order].to(torch.int32)
-
-
-def emit_runs(tiles, nqt: int, max_run: int):
-    """int32 [n_runs + 1]: the emit kernel's runs of the listed tiles
-    (flat ids, ascending), each at most max_run consecutive tiles of one
-    target tile, run r being tiles run[r] .. run[r + 1] - 1; on tiles'
-    device."""
-    n = tiles.numel()
-    tt = tiles // nqt
-    # each tile's rank among the listed tiles of its target tile
-    rank = torch.arange(n, device=tiles.device) - torch.searchsorted(tt, tt)
-    starts = torch.nonzero(rank % max_run == 0).flatten()
-    return torch.cat([starts, torch.tensor([n], device=tiles.device)]).to(
-        torch.int32)
+        ci, j = torch.nonzero(mask, as_tuple=True)
+        k = min(max(cap - n, 0), ci.numel())
+        gi[n:n + k] = row_id[ci[:k]]
+        gj[n:n + k] = (j[:k] + c0).to(torch.int32)
+        n += ci.numel()
+    cursor.fill_(n)
 
 
 def _check(name, x, dtype, dev):
@@ -414,189 +341,115 @@ def _check(name, x, dtype, dev):
                          f"{x.device}")
 
 
-def _check_layout(qexp, thr, letters, tval, offs):
-    dev = qexp.device
-    for name, x, dtype in (("qexp", qexp, torch.int8),
-                           ("thr", thr, torch.int32),
-                           ("letters", letters, torch.uint8),
-                           ("tval", tval, torch.uint8)):
-        _check(name, x, dtype, dev)
-    R, C = qexp.shape[0], tval.numel()
-    if qexp.dim() != 2 or qexp.shape[1] != KDIM or R % TILE_Q or R == 0:
-        raise ValueError(f"prefilter_dense: qexp must be [R, {KDIM}] with R "
-                         f"a positive multiple of {TILE_Q}")
-    if thr.numel() != R:
-        raise ValueError("prefilter_dense: thr must have one entry per row")
-    if C % TILE_T or C == 0:
-        raise ValueError(f"prefilter_dense: tval length must be a positive "
-                         f"multiple of {TILE_T}")
-    if letters.numel() < C + max(offs):
-        raise ValueError("prefilter_dense: letters must cover every "
-                         "position's k-mer")
-    if C > 0x7fffffff or (C // TILE_T) * (R // TILE_Q) > 0x7fffffff:
-        raise ValueError("prefilter_dense: too many positions or tiles for "
-                         "one launch")
-    if qexp.data_ptr() % 16:
-        raise ValueError("prefilter_dense: qexp must be 16-byte aligned")
-
-
 def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
 
 
-def _checked_compacted(qexp, thr, compacted):
-    """compact_rows(qexp, thr), or `compacted` (its output for these
-    qexp and thr) after checking its layout."""
-    if compacted is None:
-        return compact_rows(qexp, thr)
-    dev = qexp.device
-    qexp_c, thr_c, q_tile, row_id, qt_start = compacted
+def _check_inputs(compacted, letters, tval, offs, gi, gj, cursor):
+    """Raise unless the kernel takes these inputs (the shared layout and
+    compact_rows' form, on one device)."""
+    qexp_c, thr_c, row_id = compacted
+    dev = qexp_c.device
     for name, x, dtype in (("compacted qexp", qexp_c, torch.int8),
                            ("compacted thr", thr_c, torch.int32),
-                           ("compacted q_tile", q_tile, torch.int32),
                            ("compacted row_id", row_id, torch.int32),
-                           ("compacted qt_start", qt_start, torch.int32)):
+                           ("letters", letters, torch.uint8),
+                           ("tval", tval, torch.uint8),
+                           ("gi", gi, torch.int32), ("gj", gj, torch.int32),
+                           ("cursor", cursor, torch.int64)):
         _check(name, x, dtype, dev)
-    rc = qexp_c.shape[0]
+    rc, C = qexp_c.shape[0], tval.numel()
     if (qexp_c.dim() != 2 or qexp_c.shape[1] != KDIM or rc % ROW_TILE
-            or rc == 0 or thr_c.numel() != rc or q_tile.numel() != rc
-            or row_id.numel() != rc
-            or qt_start.numel() != qexp.shape[0] // TILE_Q + 1):
+            or rc == 0 or thr_c.numel() != rc or row_id.numel() != rc):
         raise ValueError(f"prefilter_dense: compacted rows must be [Rc, "
                          f"{KDIM}] with Rc a positive multiple of "
-                         f"{ROW_TILE}, one threshold, query tile and row "
-                         f"id each, and one start per query tile")
-    if qexp_c.data_ptr() % 16 or thr_c.data_ptr() % 16:
+                         f"{ROW_TILE}, one threshold and row id each")
+    if qexp_c.data_ptr() % 16:
         raise ValueError("prefilter_dense: compacted rows must be 16-byte "
                          "aligned")
-    return compacted
+    if C % TILE_T or C == 0 or C > 0x7fffffff:
+        raise ValueError(f"prefilter_dense: tval length must be a positive "
+                         f"multiple of {TILE_T} below 2^31")
+    if letters.numel() < C + max(offs):
+        raise ValueError("prefilter_dense: letters must cover every "
+                         "position's k-mer")
+    if gj.numel() != gi.numel() or cursor.numel() != 1:
+        raise ValueError("prefilter_dense: gi and gj must pair up, and the "
+                         "cursor must be one int64")
 
 
-def prefilter_dense_counts(qexp, thr, letters, tval, offsets,
-                           compacted=None):
-    """int32 [ntt, nqt] hits per (target tile, query tile), the port of
-    the TPU counts kernel (layout: the comment above pad_offsets).
+def prefilter_dense_hits(compacted, letters, tval, offsets, gi, gj,
+                         cursor):
+    """Every hit of one target chunk, the port of the TPU counts kernel
+    and of the extraction after it: prefilter_dense_hits_plain's contract
+    (compacted from compact_rows, letters and tval in the shared layout,
+    gi and gj of equal length, cursor int64 [1]), with the hits in no
+    fixed order on a card.
 
-    On CUDA tensors this compacts the rows that can match (compact_rows,
-    or takes `compacted`, its output for these qexp and thr, made once
-    per query chunk) and launches csrc/prefilter_dense.cu, and raises if
-    the kernel cannot be built or launched; on CPU tensors it runs
-    prefilter_dense_counts_plain."""
+    On CUDA tensors this launches csrc/prefilter_dense.cu (the cursor
+    zeroed first) and raises if the kernel cannot be built or launched;
+    on CPU tensors it runs prefilter_dense_hits_plain."""
     offs = pad_offsets(offsets)
-    dev = qexp.device
+    dev = compacted[0].device
     if dev.type == "cpu":
-        return prefilter_dense_counts_plain(qexp, thr, letters, tval, offsets)
+        return prefilter_dense_hits_plain(compacted, letters, tval, offsets,
+                                          gi, gj, cursor)
     if dev.type != "cuda":
-        raise ValueError(f"prefilter_dense_counts: unsupported device {dev}")
-    _check_layout(qexp, thr, letters, tval, offs)
-    qexp_c, thr_c, q_tile, _, _ = _checked_compacted(qexp, thr, compacted)
-    rc = qexp_c.shape[0]
+        raise ValueError(f"prefilter_dense_hits: unsupported device {dev}")
+    _check_inputs(compacted, letters, tval, offs, gi, gj, cursor)
+    qexp_c, thr_c, row_id = compacted
     from ._cuda import library
     lib = library("prefilter_dense")
     if lib.prefilter_dense_row_tile() != ROW_TILE:
         raise RuntimeError("prefilter_dense: ROW_TILE disagrees with the "
                            "kernel")
     if max(offs) > lib.prefilter_dense_max_offset():
-        raise ValueError(f"prefilter_dense_counts: the kernel takes spaced "
+        raise ValueError(f"prefilter_dense_hits: the kernel takes spaced "
                          f"offsets up to {lib.prefilter_dense_max_offset()}")
-    R, C = qexp.shape[0], tval.numel()
-    out = torch.zeros((C // TILE_T, R // TILE_Q), dtype=torch.int32,
-                      device=dev)
+    rc, C = qexp_c.shape[0], tval.numel()
     stream = torch.cuda.current_stream(dev)
     events = None
     if launch_events is not None:
         events = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
         events[0].record(stream)
-    err = lib.prefilter_dense_counts_launch(
-        _ptr(qexp_c), _ptr(thr_c), _ptr(q_tile), _ptr(letters), _ptr(tval),
+    err = lib.prefilter_dense_hits_launch(
+        _ptr(qexp_c), _ptr(thr_c), _ptr(row_id), _ptr(letters), _ptr(tval),
         (ctypes.c_int * N_OFF)(*offs), ctypes.c_int(rc),
-        ctypes.c_int(R // TILE_Q), ctypes.c_int(C // TILE_T), _ptr(out),
+        ctypes.c_int(C // TILE_T), _ptr(gi), _ptr(gj),
+        ctypes.c_longlong(gi.numel()), _ptr(cursor),
         ctypes.c_void_p(stream.cuda_stream))
     if err != 0:
-        raise RuntimeError(f"prefilter_dense_counts kernel launch failed: "
+        raise RuntimeError(f"prefilter_dense_hits kernel launch failed: "
                            f"CUDA error {err}")
     if events is not None:
         events[1].record(stream)
         launch_events.append(events)
-    count("prefilter_dense_counts_launches")
-    count("prefilter_dense_counts_cells", R * C)
-    return out
+    count("prefilter_dense_hits_launches")
+    count("prefilter_dense_hits_cells", rc * C)
 
 
-def prefilter_dense_emit(qexp, thr, letters, tval, offsets, tiles, base,
-                         tile_counts, total: int, compacted=None):
-    """(gi, gj) int32 [total]: row and position of every hit of the
-    listed tiles, the port of the TPU path's hit extraction. tiles int64
-    [n] flat tile ids in ascending order, base int64 [n] exclusive prefix
-    sums of tile_counts int32 [n] (the tiles' counts); tile k's hits land
-    in base[k] .. base[k] + tile_counts[k] - 1, in no fixed order inside
-    it.
-
-    On CUDA tensors this takes the compacted rows (compact_rows, or
-    `compacted`, as prefilter_dense_counts does), cuts the listed tiles
-    into runs of at most EMIT_RUN tiles of one target tile (emit_runs),
-    launches csrc/prefilter_dense.cu, checks that every tile wrote
-    exactly its count, and raises if the kernel cannot be built or
-    launched or the check fails; on CPU tensors it runs
-    prefilter_dense_emit_plain."""
-    offs = pad_offsets(offsets)
-    dev = qexp.device
-    if dev.type == "cpu":
-        return prefilter_dense_emit_plain(qexp, thr, letters, tval, offsets,
-                                          tiles, base, tile_counts, total)
-    if dev.type != "cuda":
-        raise ValueError(f"prefilter_dense_emit: unsupported device {dev}")
-    _check_layout(qexp, thr, letters, tval, offs)
-    for name, x, dtype in (("tiles", tiles, torch.int64),
-                           ("base", base, torch.int64),
-                           ("tile_counts", tile_counts, torch.int32)):
-        _check(name, x, dtype, dev)
-    n = tiles.numel()
-    if base.numel() != n or tile_counts.numel() != n:
-        raise ValueError("prefilter_dense_emit: tiles, base and tile_counts "
-                         "must have one entry per tile")
-    if n > 0x7fffffff or total > 0x7fffffff:
-        raise ValueError("prefilter_dense_emit: too many tiles or hits for "
-                         "one launch")
-    gi = torch.empty(total, dtype=torch.int32, device=dev)
-    gj = torch.empty(total, dtype=torch.int32, device=dev)
-    if n == 0:
-        return gi, gj
-    if not bool((tiles[1:] > tiles[:-1]).all()):
-        raise ValueError("prefilter_dense_emit: tiles must be ascending")
-    qexp_c, thr_c, _, row_id, qt_start = _checked_compacted(qexp, thr,
-                                                            compacted)
-    nqt = qexp.shape[0] // TILE_Q
-    runs = emit_runs(tiles, nqt, EMIT_RUN)
-    from ._cuda import library
-    lib = library("prefilter_dense")
-    written = torch.empty(n, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev)
-    events = None
-    if launch_events is not None:
-        events = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        events[0].record(stream)
-    err = lib.prefilter_dense_emit_launch(
-        _ptr(qexp_c), _ptr(thr_c), _ptr(row_id), _ptr(qt_start),
-        _ptr(letters), _ptr(tval), (ctypes.c_int * N_OFF)(*offs),
-        ctypes.c_int(nqt), _ptr(tiles), _ptr(runs),
-        ctypes.c_int(runs.numel() - 1), ctypes.c_int(EMIT_RUN), _ptr(base),
-        _ptr(tile_counts), _ptr(gi), _ptr(gj), _ptr(written),
-        ctypes.c_void_p(stream.cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"prefilter_dense_emit kernel launch failed: "
-                           f"CUDA error {err}")
-    if events is not None:
-        events[1].record(stream)
-        launch_events.append(events)
-    count("prefilter_dense_emit_launches")
-    if not torch.equal(written, tile_counts):
-        raise RuntimeError(f"prefilter_dense_emit: the tiles wrote "
-                           f"{int(written.sum())} hits, the counts say "
-                           f"{total}")
-    return gi, gj
+def chunk_hits(compacted, letters, tval, offsets, buffer):
+    """(gi int32 [n], gj int64 [n]): the n hits of one target chunk
+    (prefilter_dense_hits' inputs; gj relative to the chunk), in no fixed
+    order, on the inputs' device: one pass into `buffer` (new_hit_buffer's
+    form), one 8-byte read of its cursor, and the hits copied out of it.
+    Where they overflow the buffer the chunk runs again into a buffer of
+    exactly n hits (counted in dense_hit_reruns), so that the output never
+    depends on the buffer's capacity."""
+    gi, gj, cursor = buffer
+    prefilter_dense_hits(compacted, letters, tval, offsets, gi, gj, cursor)
+    n = int(cursor.item())
+    if n <= gi.numel():
+        return gi[:n].clone(), gj[:n].long()
+    count("dense_hit_reruns")
+    gi, gj, cursor = new_hit_buffer(n, gi.device)
+    prefilter_dense_hits(compacted, letters, tval, offsets, gi, gj, cursor)
+    again = int(cursor.item())
+    if again != n:
+        raise RuntimeError(f"chunk_hits: the pass found {n} hits, then "
+                           f"{again}")
+    return gi, gj.long()
 
 
 def build_qexp_i8(batch: QueryKmerBatch, seed_scores: np.ndarray):
@@ -695,49 +548,35 @@ def dense_inputs(batch: QueryKmerBatch, t_flat: np.ndarray,
             tuple(int(o) for o in batch.offsets))
 
 
-def hit_tiles(counts: torch.Tensor):
-    """(tiles, base, tile_counts, total): the emit pass's arguments for
-    the tiles with hits, on counts' device: flat tile ids (int64), the
-    exclusive prefix sums of their counts (int64), the counts (int32),
-    and the number of hits."""
-    flat = counts.flatten()
-    tiles = torch.nonzero(flat).flatten()
-    tc = flat[tiles]
-    return (tiles, torch.cumsum(tc, 0, dtype=torch.int64) - tc, tc,
-            int(tc.sum()))
-
-
 def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
                 t_bval: np.ndarray, seed_scores: np.ndarray, kmer_thr: int,
                 device="cuda", target: Optional[DenseTarget] = None):
     """(gi int32, gj int64) tensors on `device`: every query k-mer row gi
     of the batch and target position gj with K >= thr_gi and a valid
-    k-mer at gj, found by the counts and emit passes (the kernels on a
-    GPU, the plain versions on the CPU). Hits come in no fixed order and
-    stay on the device; no pad row or position past the target hits (their
+    k-mer at gj, found by one pass per target chunk (chunk_hits: the
+    kernel on a GPU, its plain version on the CPU) into the device's hit
+    buffer (hit_buffer). Hits come in no fixed order and stay on the
+    device; no pad row or position past the target hits (their
     thresholds and tval exclude them), and the stream rebuild drops any
     that would. target: the DenseTarget of (t_flat, t_bval) already on
     `device` (a resident copy of the catalog), or None to upload it here.
-    Each target chunk is a slice of it; the last ends a tile past the
-    target at most."""
+    Each target chunk, of at most MAX_CHUNK positions, is a slice of it;
+    the last ends a tile past the target at most."""
     dev = torch.device(device)
     if target is None:
         target = dense_target(t_flat, t_bval, batch.span, dev)
     t_res = target.t_res
     offsets = tuple(int(o) for o in batch.offsets)
     qexp_np, thr_np = build_qexp_i8(batch, seed_scores)
-    qexp = upload(qexp_np, dev)
-    thr = upload(thr_np, dev)
-    nqt = qexp_np.shape[0] // TILE_Q
     rows = int(np.count_nonzero(thr_np <= MAX_K))
     count("dense_rows", rows)
     count("dense_cells", rows * t_res)
-    # the kernels' compacted rows, once for every target chunk
-    compacted = compact_rows(qexp, thr) if dev.type == "cuda" else None
-    # target chunk: MAX_TILES tiles, positions addressable in int32
-    C = min(max(MAX_TILES // nqt, 1) * TILE_T, 1 << 30,
+    # the kernel's compacted rows, once for every target chunk
+    compacted = compact_rows(upload(qexp_np, dev), upload(thr_np, dev))
+    C = min(max(MAX_CHUNK // TILE_T, 1) * TILE_T,
             max(-(-t_res // TILE_T), 1) * TILE_T)
     diag21 = _diag21(seed_scores, dev)
+    buffer = hit_buffer(dev)
     gis, gjs = [], []
     for c0 in range(0, t_res, C):
         with span("dense_target"):
@@ -745,25 +584,12 @@ def match_pairs(batch: QueryKmerBatch, t_flat: np.ndarray,
                 target, batch, diag21, kmer_thr, c0,
                 min(C, -(-(t_res - c0) // TILE_T) * TILE_T))
         with span("dense_counts"):
-            tiles, base, tc, total = hit_tiles(prefilter_dense_counts(
-                qexp, thr, letters, tval, offsets, compacted))
-            base_np = base.cpu().numpy()
-            ends_np = base_np + tc.cpu().numpy()
-        count("dense_hits", total)
-        # one emit launch per run of hit tiles holding <= MAX_EMIT_HITS
-        lo = 0
-        while lo < len(ends_np):
-            start = int(base_np[lo])
-            hi = max(int(np.searchsorted(ends_np, start + MAX_EMIT_HITS,
-                                         side="right")), lo + 1)
-            with span("dense_emit"):
-                gi, gj = prefilter_dense_emit(
-                    qexp, thr, letters, tval, offsets, tiles[lo:hi],
-                    base[lo:hi] - start, tc[lo:hi],
-                    int(ends_np[hi - 1]) - start, compacted)
-            gis.append(gi)
-            gjs.append(gj.long() + c0)
-            lo = hi
+            gi, gj = chunk_hits(compacted, letters, tval, offsets, buffer)
+        count("dense_hits", gi.numel())
+        if c0:
+            gj += c0
+        gis.append(gi)
+        gjs.append(gj)
     if not gis:
         return (torch.zeros(0, dtype=torch.int32, device=dev),
                 torch.zeros(0, dtype=torch.int64, device=dev))
@@ -1314,9 +1140,9 @@ def device_prefilter_arrays(q_all, keys, bias80_all, t_flat_masked,
     target: the positions whose k-mer stays inside one ORF),
     dense_query_batch (the query batch, its composition bias), dense_match
     (match_pairs: each target chunk's slice and tval in dense_target, the
-    counts pass and its read-back in dense_counts, the emit in
-    dense_emit), dense_streams (the stream rebuild and its read-back) and
-    dense_finalize."""
+    pass that finds its hits, and the read-back of their number, in
+    dense_counts), dense_streams (the stream rebuild and its read-back)
+    and dense_finalize."""
     from ..native import get_lib
     t_flat_masked = np.ascontiguousarray(t_flat_masked, dtype=np.uint8)
     t_starts = np.asarray(t_starts, dtype=np.int64)

@@ -25,9 +25,9 @@ from spacepharer_tpu_torch.ops.prefilter import (
     PrefilterParams, SimilarKmerEnumerator, build_masked_flat)
 
 
-# the registry counters of the counts and emit launches
-LAUNCHES = ("prefilter_dense_counts_launches",
-            "prefilter_dense_emit_launches")
+# the registry counters of the kernel's launches and of the chunks that
+# ran again into a larger buffer
+LAUNCHES = ("prefilter_dense_hits_launches", "dense_hit_reruns")
 
 
 def _counted(*names):
@@ -80,6 +80,26 @@ def pairs(gi, gj):
         return torch.as_tensor(x).cpu().tolist()
 
     return sorted(zip(values(gi), values(gj)))
+
+
+def plain_pass(inputs, capacity):
+    """(gi, gj, n) of the plain pass over the compacted rows of `inputs`
+    (dense_inputs' form) into a new buffer of `capacity` hits: the buffer's
+    arrays and the cursor's count."""
+    gi, gj, cursor = pd.new_hit_buffer(capacity, inputs[0].device)
+    pd.prefilter_dense_hits_plain(pd.compact_rows(inputs[0], inputs[1]),
+                                  *inputs[2:], gi, gj, cursor)
+    return gi, gj, int(cursor.item())
+
+
+def tile_counts(gi, gj, inputs):
+    """int64 [ntt, nqt]: the hits per (target tile, query tile) of the
+    grid of `inputs`, the TPU counts kernel's output."""
+    nqt = inputs[0].shape[0] // pd.TILE_Q
+    ntt = inputs[3].numel() // pd.TILE_T
+    flat = (torch.as_tensor(gj).long() // pd.TILE_T) * nqt \
+        + torch.as_tensor(gi).long() // pd.TILE_Q
+    return torch.bincount(flat, minlength=ntt * nqt).reshape(ntt, nqt)
 
 
 @dataclass
@@ -354,32 +374,34 @@ def test_host_helpers_match_jax(seed):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_plain_counts_match_pallas_interpret(seed):
-    """prep + the plain counts on the JAX kernel's padded tile grid,
-    against _device_prep_fn + _counts_pallas in interpret mode."""
+    """prep + the plain pass on the JAX kernel's padded tile grid, its
+    hits counted per tile, against _device_prep_fn + _counts_pallas in
+    interpret mode."""
     params, seed_m, _, _, batch, flat, _, bval = _case(seed)
     thr = params.kmer_threshold()
     inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores, thr, "cpu")
     want = _pallas_counts(batch, seed_m.scores, thr, inputs, bval)
-    got = pd.prefilter_dense_counts(*inputs)
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), want)
+    gi, gj, n = plain_pass(inputs, 1 << 16)
+    assert gi.dtype == gj.dtype == torch.int32
+    np.testing.assert_array_equal(tile_counts(gi[:n], gj[:n], inputs).numpy(),
+                                  want)
     assert want.sum() > 0
 
 
 @pytest.mark.parametrize("name", list(EDGE_CASES))
 def test_edge_counts_match_pallas_interpret(name):
-    """The counts kernel's edge cases: the plain counts and the plain
-    counts of the compacted rows (compact_rows) equal the Pallas kernel
-    in interpret mode; match_pairs on the CPU equals the numpy oracle."""
+    """The kernel's edge cases: the plain pass over the compacted rows
+    (compact_rows), its hits counted per tile, equals the Pallas counts
+    kernel in interpret mode; match_pairs on the CPU equals the numpy
+    oracle."""
     params, seed_m, batch, flat, bval = edge_case(name)
     thr = params.kmer_threshold()
     inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores, thr, "cpu")
     want = _pallas_counts(batch, seed_m.scores, thr, inputs, bval)
-    np.testing.assert_array_equal(pd.prefilter_dense_counts(*inputs).numpy(),
+    gi, gj, n = plain_pass(inputs, 1 << 18)
+    np.testing.assert_array_equal(tile_counts(gi[:n], gj[:n], inputs).numpy(),
                                   want)
     compacted = pd.compact_rows(inputs[0], inputs[1])
-    np.testing.assert_array_equal(pd.prefilter_dense_counts_compacted_plain(
-        compacted, *inputs[2:], want.shape[1]).numpy(), want)
     assert want.sum() > 0
     if name == "tile_fill":
         assert (want.sum(axis=0) > 0).tolist() == ([False] + [True] * 5
@@ -411,37 +433,33 @@ def test_edge_counts_match_pallas_interpret(name):
 
 
 def test_compact_rows_keeps_rows_that_can_match():
-    """compact_rows keeps the rows at thr <= 762 in order, with their query
-    tiles and row ids, and each query tile's first compacted row, and pads
-    to whole row tiles with rows that never hit."""
+    """compact_rows keeps the rows at thr <= 762 in order, with their row
+    ids, and pads to whole row tiles with rows that never hit."""
     qexp = torch.arange(5 * pd.TILE_Q * pd.KDIM).reshape(-1, pd.KDIM)
     qexp = (qexp % 251 - 125).to(torch.int8)
     thr = torch.full((5 * pd.TILE_Q,), pd.THR_INVALID, dtype=torch.int32)
     rows = torch.tensor([0, 3, 255, 256, 700, 1279])
     thr[rows] = torch.tensor([0, 762, 5, 1, 300, 7], dtype=torch.int32)
     thr[9] = 763
-    qexp_c, thr_c, q_tile, row_id, qt_start = pd.compact_rows(qexp, thr)
+    qexp_c, thr_c, row_id = pd.compact_rows(qexp, thr)
     assert qexp_c.shape == (pd.ROW_TILE, pd.KDIM)
     assert torch.equal(qexp_c[:6], qexp[rows])
     assert torch.equal(qexp_c[6:], torch.zeros_like(qexp_c[6:]))
     assert thr_c[:6].tolist() == [0, 762, 5, 1, 300, 7]
     assert bool((thr_c[6:] == pd.THR_INVALID).all())
-    assert q_tile[:6].tolist() == [0, 0, 0, 1, 2, 4]
-    assert bool((q_tile[6:] == 0).all())
-    assert row_id.dtype == qt_start.dtype == torch.int32
+    assert row_id.dtype == torch.int32
     assert row_id[:6].tolist() == rows.tolist()
     assert bool((row_id[6:] == 0).all())
-    assert qt_start.tolist() == [0, 3, 4, 5, 5, 6]
     empty = pd.compact_rows(qexp, torch.full_like(thr, pd.THR_INVALID))
     assert empty[0].shape[0] == pd.ROW_TILE
     assert bool((empty[1] == pd.THR_INVALID).all())
-    assert empty[4].tolist() == [0] * 6
+    assert empty[2].tolist() == [0] * pd.ROW_TILE
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_plain_match_pairs_matches_jax(seed):
-    """The port's match_pairs on the CPU (plain counts and emit) against
-    the numpy oracle and the JAX Pallas path in interpret mode."""
+    """The port's match_pairs on the CPU (the plain pass) against the
+    numpy oracle and the JAX Pallas path in interpret mode."""
     from spacepharer_tpu.ops import prefilter_dense as jpd
     params, seed_m, _, _, batch, flat, _, bval = _case(seed)
     thr = params.kmer_threshold()
@@ -488,58 +506,30 @@ def test_device_prefilter_matches_jax(seed, mask):
 
 # ------------------------------------------------- the wrappers' host logic
 
+def _chunk_counts(gj, chunk):
+    """The number of hits in each target chunk of `chunk` positions."""
+    return np.bincount(np.asarray(gj) // chunk).tolist()
+
+
 def test_match_pairs_chunks_and_emit_splits(monkeypatch):
-    """Target chunks of one tile-row and emit runs of a few hits give the
-    oracle's hit set (chunk and launch bounds never change output)."""
+    """Target chunks of three tiles and a hit buffer of five hits give the
+    oracle's hit set (chunk and buffer bounds never change output); each
+    chunk with more than five hits runs again."""
     params, seed_m, _, _, batch, flat, _, bval = _case(5, mask=True,
                                                        n_targets=200,
                                                        n_queries=30)
     thr = params.kmer_threshold()
-    want = pairs(*pd.match_pairs_numpy(batch, flat, bval, seed_m.scores,
-                                       thr))
-    monkeypatch.setattr(pd, "MAX_TILES", 3)
-    monkeypatch.setattr(pd, "MAX_EMIT_HITS", 5)
+    oracle = pd.match_pairs_numpy(batch, flat, bval, seed_m.scores, thr)
+    monkeypatch.setattr(pd, "MAX_CHUNK", 3 * pd.TILE_T)
+    monkeypatch.setattr(pd, "HIT_CAPACITY", 5)
     monkeypatch.setattr(pd, "PLAIN_MAX_ELEMS", 1)
+    before = _counted(*LAUNCHES)
     got = pairs(*pd.match_pairs(batch, flat, bval, seed_m.scores, thr,
                                 device="cpu"))
-    assert got == want and len(want) > 20
-
-
-def test_plain_emit_places_hits_at_tile_bases():
-    """Each listed tile's hits land at its base, row-major inside it;
-    unlisted tiles contribute nothing; a wrong total raises."""
-    params, seed_m, _, _, batch, flat, _, bval = _case(1, n_targets=120)
-    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores,
-                             params.kmer_threshold(), "cpu")
-    counts = pd.prefilter_dense_counts_plain(*inputs)
-    tiles, base, tc, total = pd.hit_tiles(counts)
-    assert len(tiles) > 2
-    keep = torch.arange(len(tiles)) % 2 == 0
-    tiles, tc = tiles[keep], tc[keep]
-    ends = torch.cumsum(tc, 0)
-    gi, gj = pd.prefilter_dense_emit_plain(*inputs, tiles, ends - tc, tc,
-                                           int(ends[-1]))
-    nqt = inputs[0].shape[0] // pd.TILE_Q
-    tile_of = (gj.long() // pd.TILE_T) * nqt + gi.long() // pd.TILE_Q
-    assert torch.equal(tile_of, torch.repeat_interleave(tiles, tc.long()))
-    with pytest.raises(RuntimeError, match="counts say"):
-        pd.prefilter_dense_emit_plain(*inputs, tiles, ends - tc, tc,
-                                      int(ends[-1]) + 1)
-
-
-@pytest.mark.parametrize("max_run", [1, 2, 3, 64])
-def test_emit_runs_cut_target_tiles(max_run):
-    """emit_runs cuts the listed tiles into runs of at most max_run
-    consecutive tiles of one target tile, as few as that allows."""
-    nqt = 4
-    tiles = torch.tensor([0, 1, 2, 3, 5, 9, 10, 11, 13, 14])
-    runs = pd.emit_runs(tiles, nqt, max_run)
-    assert runs.dtype == torch.int32
-    want = [0]
-    for lo, hi in ((0, 4), (4, 5), (5, 8), (8, 10)):   # target tiles 0-3
-        want += list(range(lo + max_run, hi, max_run)) + [hi]
-    assert runs.tolist() == want
-    assert pd.emit_runs(tiles[:0], nqt, max_run).tolist() == [0]
+    reruns = _counted(*LAUNCHES)[1] - before[1]
+    per_chunk = _chunk_counts(oracle[1], 3 * pd.TILE_T)
+    assert got == pairs(*oracle) and len(got) > 20 and len(per_chunk) > 2
+    assert reruns == sum(n > 5 for n in per_chunk) > 0
 
 
 def test_invalid_inputs_raise():
@@ -552,6 +542,24 @@ def test_invalid_inputs_raise():
     with pytest.raises(ValueError, match="offsets"):
         pd.pad_offsets(range(7))
     assert pd.pad_offsets([0, 2]) == (0, 2, 0, 0, 0, 0)
+    # the kernel wrapper's layout checks (run before a launch)
+    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores,
+                             params.kmer_threshold(), "cpu")
+    compacted = pd.compact_rows(inputs[0], inputs[1])
+    buf = pd.new_hit_buffer(4, "cpu")
+    offs = pd.pad_offsets(inputs[4])
+    pd._check_inputs(compacted, *inputs[2:4], offs, *buf)
+    with pytest.raises(ValueError, match="gi and gj"):
+        pd._check_inputs(compacted, *inputs[2:4], offs, buf[0], buf[1][:3],
+                         buf[2])
+    with pytest.raises(ValueError, match="cursor must be a contiguous"):
+        pd._check_inputs(compacted, *inputs[2:4], offs, *buf[:2],
+                         buf[2].int())
+    with pytest.raises(ValueError, match="multiple of 128"):
+        pd._check_inputs((compacted[0][:64], compacted[1][:64],
+                          compacted[2][:64]), *inputs[2:4], offs, *buf)
+    with pytest.raises(ValueError, match="tval length"):
+        pd._check_inputs(compacted, inputs[2], inputs[3][:100], offs, *buf)
 
 
 # --------------------------------------------------- the kernels on a card
@@ -585,147 +593,205 @@ def cuda_case(name):
     return params, seed_m, batch, flat, bval
 
 
-def tile_sets(gi, gj, tile_counts):
-    """Sorted (tile index, gi, gj) triples of an emit's output: its hits
-    as a set per listed tile."""
-    k = torch.repeat_interleave(torch.arange(tile_counts.numel()),
-                                tile_counts.cpu().long())
-    return sorted(zip(k.tolist(), gi.cpu().tolist(), gj.cpu().tolist()))
-
-
 def match_pairs_small_bounds(batch, flat, bval, scores, kmer_thr):
-    """match_pairs on the card with 3-tile target chunks and emit
-    launches of at most 17 hits, so that it walks several of each: its
-    hit pairs, and the counts and emit launches it made."""
-    saved = pd.MAX_TILES, pd.MAX_EMIT_HITS
+    """match_pairs on the card with 3-tile target chunks and a hit buffer
+    of 17 hits, so that it walks several chunks and runs some again: its
+    hit pairs, and the launches and reruns it made."""
+    saved = pd.MAX_CHUNK, pd.HIT_CAPACITY
     before = _counted(*LAUNCHES)
-    pd.MAX_TILES, pd.MAX_EMIT_HITS = 3, 17
+    pd.MAX_CHUNK, pd.HIT_CAPACITY = 3 * pd.TILE_T, 17
     try:
         got = pairs(*pd.match_pairs(batch, flat, bval, scores, kmer_thr,
                                     device="cuda"))
     finally:
-        pd.MAX_TILES, pd.MAX_EMIT_HITS = saved
+        pd.MAX_CHUNK, pd.HIT_CAPACITY = saved
     after = _counted(*LAUNCHES)
     return got, (after[0] - before[0], after[1] - before[1])
 
 
+def _case_inputs(case, device="cpu"):
+    """(params, seed matrix, batch, flat, bval, inputs) of a `cuda` case,
+    inputs its dense_inputs on `device`."""
+    params, seed_m, batch, flat, bval = cuda_case(case)
+    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores,
+                             params.kmer_threshold(), device)
+    return params, seed_m, batch, flat, bval, inputs
+
+
+def _oracle(case_parts):
+    params, seed_m, batch, flat, bval = case_parts[:5]
+    return pairs(*pd.match_pairs_numpy(batch, flat, bval, seed_m.scores,
+                                       params.kmer_threshold()))
+
+
 @pytest.mark.parametrize("case", list(CUDA_CASES))
 def test_compacted_counts_equal_plain(case):
-    """The counts of the compacted rows, rebuilt through their query-tile
-    map, equal the plain counts on every `cuda` case."""
-    params, seed_m, batch, flat, bval = cuda_case(case)
-    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores,
-                             params.kmer_threshold(), "cpu")
-    want = pd.prefilter_dense_counts_plain(*inputs)
-    got = pd.prefilter_dense_counts_compacted_plain(
-        pd.compact_rows(inputs[0], inputs[1]), *inputs[2:], want.shape[1])
-    assert torch.equal(got, want)
+    """The plain pass over the compacted rows, its hits counted per (target
+    tile, query tile), equals the tile sums of the plain hit mask of all
+    rows on every `cuda` case: compaction drops no row that can hit."""
+    *_, inputs = _case_inputs(case)
+    want = torch.zeros_like(tile_counts([], [], inputs))
+    for c0, mask in pd._plain_blocks(*inputs[:4], inputs[4]):
+        w = mask.shape[1] // pd.TILE_T
+        want[c0 // pd.TILE_T:c0 // pd.TILE_T + w] += mask.reshape(
+            want.shape[1], pd.TILE_Q, w, pd.TILE_T).sum(dim=(1, 3)).T
+    gi, gj, n = plain_pass(inputs, 1 << 18)
+    assert torch.equal(tile_counts(gi[:n], gj[:n], inputs), want)
+    assert (n == 0) == (case == "zero_hits")
 
 
-def listed_tiles(counts, listing):
-    """The emit pass's (tiles, base, tile_counts, total) for the tiles of
-    `listing`: "hit" every tile with hits (hit_tiles), "every" every tile
-    of the grid (those without hits at 0 slots), "alternate" every other
-    tile with hits."""
-    if listing == "hit":
-        return pd.hit_tiles(counts)
-    flat = counts.flatten()
-    tiles = torch.arange(flat.numel(), device=counts.device)
-    if listing == "alternate":
-        tiles = torch.nonzero(flat).flatten()[::2]
-    tc = flat[tiles]
-    return (tiles, torch.cumsum(tc, 0, dtype=torch.int64) - tc, tc,
-            int(tc.sum()))
-
-
-@pytest.mark.parametrize("listing", ["every", "alternate"])
+@pytest.mark.parametrize("capacity", ["ample", "short"])
 @pytest.mark.parametrize("case", list(CUDA_CASES))
-def test_compacted_emit_equals_plain(case, listing):
-    """The plain emit of the compacted rows equals the plain emit of all
-    rows exactly (hits row-major in each tile at its base) on every `cuda`
-    case, with every tile of the grid listed and with every other hit
-    tile listed."""
-    params, seed_m, batch, flat, bval = cuda_case(case)
-    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores,
-                             params.kmer_threshold(), "cpu")
-    counts = pd.prefilter_dense_counts_plain(*inputs)
-    hit = listed_tiles(counts, listing)
-    want = pd.prefilter_dense_emit_plain(*inputs, *hit)
-    got = pd.prefilter_dense_emit_compacted_plain(
-        pd.compact_rows(inputs[0], inputs[1]), *inputs[2:], counts.shape[1],
-        *hit)
-    assert got[0].dtype == got[1].dtype == torch.int32
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert (hit[3] == 0) == (case == "zero_hits")
+def test_plain_hits_equal_oracle(case, capacity):
+    """chunk_hits on the CPU (the plain pass) equals the numpy oracle as a
+    set on every `cuda` case, into a buffer with room to spare and into
+    one of half the hits, which runs the chunk again (counted)."""
+    parts = _case_inputs(case)
+    want = _oracle(parts)
+    cap = len(want) + 7 if capacity == "ample" else len(want) // 2
+    before = _counted(*LAUNCHES)
+    gi, gj = pd.chunk_hits(pd.compact_rows(*parts[5][:2]), *parts[5][2:],
+                           pd.new_hit_buffer(cap, "cpu"))
+    reruns = _counted(*LAUNCHES)[1] - before[1]
+    assert gi.dtype == torch.int32 and gj.dtype == torch.int64
+    assert pairs(gi, gj) == want
+    assert reruns == int(cap < len(want))
+    assert (capacity == "short" and case != "zero_hits") == (reruns == 1)
+
+
+@pytest.mark.parametrize("capacity", ["zero", "exact", "one_short"])
+@pytest.mark.parametrize("case", [f"seed{s}_mask{m}" for s in (0, 1, 2)
+                                  for m in (0, 1)])
+def test_hit_capacity_edges(case, capacity):
+    """The plain pass into a buffer of 0 hits, of exactly the hits and of
+    one less: the cursor counts every hit, the first min(n, capacity)
+    slots hold distinct hits of the oracle and nothing lands past them;
+    chunk_hits reruns only where the hits overflow, and returns the
+    oracle's set either way."""
+    parts = _case_inputs(case)
+    want = _oracle(parts)
+    n = len(want)
+    cap = {"zero": 0, "exact": n, "one_short": n - 1}[capacity]
+    gi, gj, cursor = pd.new_hit_buffer(cap + 3, "cpu")
+    gi.fill_(-5)
+    gj.fill_(-5)
+    pd.prefilter_dense_hits_plain(pd.compact_rows(*parts[5][:2]),
+                                  *parts[5][2:], gi[:cap], gj[:cap], cursor)
+    assert int(cursor.item()) == n > 0
+    written = pairs(gi[:cap], gj[:cap])
+    assert len(set(written)) == cap and set(written) <= set(want)
+    assert gi[cap:].tolist() == gj[cap:].tolist() == [-5] * 3
+    before = _counted(*LAUNCHES)
+    got = pd.chunk_hits(pd.compact_rows(*parts[5][:2]), *parts[5][2:],
+                        pd.new_hit_buffer(cap, "cpu"))
+    assert pairs(*got) == want
+    assert _counted(*LAUNCHES)[1] - before[1] == int(capacity != "exact")
+
+
+@pytest.mark.parametrize("capacity", ["default", "tiny"])
+def test_dense_hit_reruns_counted(capacity, monkeypatch):
+    """match_pairs counts one dense_hit_reruns for each target chunk whose
+    hits overflow the hit buffer: none at HIT_CAPACITY, and at a buffer of
+    3 hits every chunk with more; dense_hits counts the hits."""
+    parts = cuda_case("multichunk")
+    params, seed_m, batch, flat, bval = parts
+    oracle = pd.match_pairs_numpy(batch, flat, bval, seed_m.scores,
+                                  params.kmer_threshold())
+    chunk = 4 * pd.TILE_T
+    monkeypatch.setattr(pd, "MAX_CHUNK", chunk)
+    if capacity == "tiny":
+        monkeypatch.setattr(pd, "HIT_CAPACITY", 3)
+    names = ("dense_hit_reruns", "dense_hits")
+    before = _counted(*names)
+    got = pairs(*pd.match_pairs(batch, flat, bval, seed_m.scores,
+                                params.kmer_threshold(), device="cpu"))
+    reruns, hits = (a - b for a, b in zip(_counted(*names), before))
+    per_chunk = _chunk_counts(oracle[1], chunk)
+    assert got == pairs(*oracle) and hits == len(got)
+    assert len(per_chunk) > 2
+    assert reruns == (sum(n > 3 for n in per_chunk) if capacity == "tiny"
+                      else 0)
+    if capacity == "tiny":
+        assert reruns > 0
+
+
+def test_hit_buffer_kept_per_device(monkeypatch):
+    """hit_buffer allocates once per device and hands the same tensors to
+    every later call, and allocates anew when HIT_CAPACITY changes."""
+    monkeypatch.setattr(pd, "_hit_buffers", {})
+    monkeypatch.setattr(pd, "HIT_CAPACITY", 11)
+    first = pd.hit_buffer("cpu")
+    assert [t.numel() for t in first] == [11, 11, 1]
+    assert [t.dtype for t in first] == [torch.int32, torch.int32,
+                                        torch.int64]
+    assert all(a is b for a, b in zip(first, pd.hit_buffer(
+        torch.device("cpu"))))
+    monkeypatch.setattr(pd, "HIT_CAPACITY", 12)
+    assert pd.hit_buffer("cpu")[0].numel() == 12
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_compacted_emit_matches_jax_extract(seed):
-    """The plain emit of the compacted rows against np.nonzero of the JAX
-    package's hit masks (_extract_fn, a plain jit) on the same hit tiles,
-    in tile order and row-major inside each."""
+    """The plain pass over the compacted rows against np.nonzero of the
+    JAX package's hit masks (_extract_fn, a plain jit) on the tiles with
+    hits, as a set."""
     import jax.numpy as jnp
     from spacepharer_tpu.ops import prefilter_dense as jpd
     params, seed_m, _, _, batch, flat, _, bval = _case(seed)
     thr = params.kmer_threshold()
     inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores, thr, "cpu")
-    counts = pd.prefilter_dense_counts_plain(*inputs)
+    gi, gj, n = plain_pass(inputs, 1 << 16)
+    counts = tile_counts(gi[:n], gj[:n], inputs)
     nqt = counts.shape[1]
-    tiles, base, tc, total = pd.hit_tiles(counts)
+    tiles = torch.nonzero(counts.flatten()).flatten()
     qt = (tiles % nqt).numpy().astype(np.int32)
     tt = (tiles // nqt).numpy().astype(np.int32)
     masks = np.asarray(jpd._extract_fn(len(qt))(
         *_jax_tiles(batch, seed_m.scores, thr, inputs, bval),
         jnp.asarray(qt), jnp.asarray(tt)))
     b, ii, jj = np.nonzero(masks)
-    gi, gj = pd.prefilter_dense_emit_compacted_plain(
-        pd.compact_rows(inputs[0], inputs[1]), *inputs[2:], nqt, tiles, base,
-        tc, total)
-    np.testing.assert_array_equal(gi.numpy(), qt[b] * pd.TILE_Q + ii)
-    np.testing.assert_array_equal(gj.numpy(), tt[b] * pd.TILE_T + jj)
-    assert total > 0
+    assert pairs(gi[:n], gj[:n]) == pairs(qt[b] * pd.TILE_Q + ii,
+                                          tt[b] * pd.TILE_T + jj)
+    assert n > 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CUDA_CASES))
-def test_cuda_kernels_match_plain(case, monkeypatch):
-    """Counts and emitted hits of the kernels equal the plain versions on
-    the same card tensors (the counts those of all rows and of the
-    compacted rows; the emit as a set per tile, also at runs of 1
-    and 2 hit tiles, and with every tile of the grid listed); match_pairs
-    on the card, walking several target chunks and emit launches, equals
-    the numpy oracle."""
+def test_cuda_kernels_match_plain(case):
+    """The kernel's hits, sorted, equal the plain pass's on the same card
+    tensors; into a buffer of half the hits it counts them all and writes
+    distinct hits into every slot it has, and chunk_hits then runs the
+    chunk again into one of exactly the hits; match_pairs on the card,
+    walking several target chunks and rerunning some, equals the numpy
+    oracle."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
-    params, seed_m, batch, flat, bval = cuda_case(case)
-    thr = params.kmer_threshold()
-    inputs = pd.dense_inputs(batch, flat, bval, seed_m.scores, thr, "cuda")
-    before = _counted(*LAUNCHES)
-    counts = pd.prefilter_dense_counts(*inputs)
-    torch.testing.assert_close(counts, pd.prefilter_dense_counts_plain(
-        *inputs), rtol=0, atol=0)
+    parts = _case_inputs(case, "cuda")
+    inputs = parts[5]
+    want = _oracle(parts)
     compacted = pd.compact_rows(inputs[0], inputs[1])
-    assert torch.equal(counts, pd.prefilter_dense_counts_compacted_plain(
-        compacted, *inputs[2:], counts.shape[1]))
-    runs = (pd.EMIT_RUN, 1, 2)
-    for listing in ("hit", "every"):
-        hit = listed_tiles(counts, listing)
-        want = tile_sets(*pd.prefilter_dense_emit_plain(*inputs, *hit), hit[2])
-        assert want == tile_sets(*pd.prefilter_dense_emit_compacted_plain(
-            compacted, *inputs[2:], counts.shape[1], *hit), hit[2])
-        for run in runs:
-            monkeypatch.setattr(pd, "EMIT_RUN", run)
-            gi, gj = pd.prefilter_dense_emit(*inputs, *hit, compacted)
-            assert tile_sets(gi, gj, hit[2]) == want, (listing, run)
-    assert (hit[3] == 0) == (case == "zero_hits")
+    gi, gj, n = plain_pass(inputs, len(want) + 1)
+    assert n == len(want) and pairs(gi[:n], gj[:n]) == want
+    before = _counted(*LAUNCHES)
+    buf = pd.new_hit_buffer(len(want) + 1, "cuda")
+    buf[2].fill_(12345)          # the launch zeroes the cursor
+    pd.prefilter_dense_hits(compacted, *inputs[2:], *buf)
+    assert int(buf[2].item()) == n
+    assert pairs(buf[0][:n], buf[1][:n]) == want
+    half = pd.new_hit_buffer(n // 2, "cuda")
+    pd.prefilter_dense_hits(compacted, *inputs[2:], *half)
+    assert int(half[2].item()) == n
+    written = pairs(half[0], half[1])
+    assert len(set(written)) == n // 2 and set(written) <= set(want)
+    got = pd.chunk_hits(compacted, *inputs[2:], pd.new_hit_buffer(
+        n // 2, "cuda"))
+    assert pairs(*got) == want
     after = _counted(*LAUNCHES)
-    assert after[0] - before[0] == 1
-    assert after[1] - before[1] == 3 * (2 if hit[3] else 1)
-    if hit[0].numel() > 1:
-        with pytest.raises(ValueError, match="ascending"):
-            pd.prefilter_dense_emit(*inputs, hit[0].flip(0), *hit[1:],
-                                    compacted)
+    reran = int(n // 2 < n)
+    assert (after[0] - before[0], after[1] - before[1]) == (3 + reran, reran)
+    assert (n == 0) == (case == "zero_hits")
 
-    got, _ = match_pairs_small_bounds(batch, flat, bval, seed_m.scores, thr)
-    assert got == pairs(*pd.match_pairs_numpy(batch, flat, bval,
-                                              seed_m.scores, thr))
+    got, _ = match_pairs_small_bounds(parts[2], parts[3], parts[4],
+                                      parts[1].scores,
+                                      parts[0].kmer_threshold())
+    assert got == want

@@ -35,7 +35,7 @@ ROUTES = {
              device="cpu"),
         COMMON + ("masked_target", "dense_pass", "dense_target_valid",
                    "dense_query_batch", "dense_match", "dense_target",
-                   "dense_counts", "dense_emit", "dense_streams",
+                   "dense_counts", "dense_streams",
                    "dense_finalize", "card_scoring", "pair_score",
                    "evalue_screen", "survivor_align")),
     "host": (

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Device time of B2's counts kernel (csrc/prefilter_dense.cu) of a
-checkout of the port, beside its bound.
+"""Device time of B2's dense pass (csrc/prefilter_dense.cu) of a checkout
+of the port, beside its bound.
 
     python3 tools/time_counts_kernel.py [--root DIR] [--shape phase3]
         [--seed 0] [--calls 5] [--rows 12032] [--tiles 92160]
 
 Imports spacepharer_tpu_torch from --root (default: this checkout), so
-that two versions of the kernel can be timed on one card in one call, one
-process each, in turns: an earlier commit unpacked with `git archive`
-under a directory that .gitignore lists, then this checkout. Shapes:
+that two versions of the kernels can be timed on one card in one call,
+one process each, in turns: an earlier commit unpacked with `git archive`
+under a directory that .gitignore lists, then this checkout. A package
+with prefilter_dense_hits runs its one pass (counts_kernel, which writes
+the hits) into a buffer with room for them all; an older one, with
+prefilter_dense_counts and prefilter_dense_emit, runs its counts kernel,
+the tile listing and its emit kernel, as its match_pairs did. Shapes:
 `phase3` builds chip_smoke.py's phase-3 corpus from the golden bundle and
 --seed and takes phase 4(b)'s inputs (its query chunk against its whole
 masked target); `catalog` makes one launch of the benchmark's dense pass
@@ -16,14 +20,13 @@ from --seed: --rows query k-mer rows that can match (random query ORFs,
 the default seed matrix and k-mer threshold; 12,032 by default, a
 search's rows at the catalog's scale; the warm call's few rows make few
 stages) against --tiles target tiles of random letters (92,160 by
-default, 47.2 M positions, what one launch of match_pairs covers
-there). It compacts the rows once, calls
-prefilter_dense_counts once to build and warm up, then --calls times with
-CUDA events around the launch alone, and prints the mean and each call's
-ms, the bound (2 x 128 int8 operations a cell of the rows that can match
-over 1,979 TOP/s) and the share, the launches, a digest of the counts
-(equal digests: equal counts), and the card's name and power limit.
-Needs one CUDA card.
+default, 47.2 M positions). It compacts the rows once, runs the pass
+once to build and warm up, then --calls times with CUDA events around
+the launches alone, and prints the mean and each call's ms (and, for the
+two kernels, each one's mean), the bound (2 x 128 int8 operations a cell
+of the rows that can match over 1,979 TOP/s) and the share, the
+launches, the hits and a digest of them as a sorted set (equal digests:
+equal hits), and the card's name and power limit. Needs one CUDA card.
 """
 import argparse
 import hashlib
@@ -113,26 +116,54 @@ def main():
     compacted = pd.compact_rows(inputs[0], inputs[1])
     rows = int((inputs[1] <= pd.MAX_K).sum())
     C = inputs[3].numel()
-    before = timings().get("prefilter_dense_counts_launches", 0)
-    counts = pd.prefilter_dense_counts(*inputs, compacted)
+    fused = hasattr(pd, "prefilter_dense_hits")
+    if fused:
+        counters = ("prefilter_dense_hits_launches",)
+        buf = pd.new_hit_buffer(1 << 26, dev)
+
+        def run():
+            pd.prefilter_dense_hits(compacted, *inputs[2:], *buf)
+            n = int(buf[2].item())
+            return buf[0][:n], buf[1][:n]
+    else:
+        counters = ("prefilter_dense_counts_launches",
+                    "prefilter_dense_emit_launches")
+
+        def run():
+            counts = pd.prefilter_dense_counts(*inputs, compacted)
+            hit = pd.hit_tiles(counts)
+            return pd.prefilter_dense_emit(*inputs, *hit, compacted)
+
+    before = [timings().get(c, 0) for c in counters]
+    gi, gj = run()
+    key = torch.sort(gi.long() * C + gj.long()).values
+    digest = hashlib.sha256(key.cpu().numpy().tobytes()).hexdigest()[:16]
+    hits = key.numel()
+    del key
     pd.launch_events = []
     try:
         for _ in range(args.calls):
-            pd.prefilter_dense_counts(*inputs, compacted)
+            run()
         torch.cuda.synchronize()
-        ms = [a.elapsed_time(b) for a, b in pd.launch_events]
+        ev = [a.elapsed_time(b) for a, b in pd.launch_events]
     finally:
         pd.launch_events = None
-    launches = timings().get("prefilter_dense_counts_launches", 0) - before
+    launches = [timings().get(c, 0) - b for c, b in zip(counters, before)]
+    per = len(ev) // args.calls      # launches a call: 1, or counts + emit
+    ms = [sum(ev[i * per:(i + 1) * per]) for i in range(args.calls)]
     mean = sum(ms) / len(ms)
+    split = "" if per == 1 else " (" + ", ".join(
+        f"{name} {sum(ev[k::per]) / args.calls:.4f} ms"
+        for k, name in enumerate(("counts", "emit")[:per])) + ")"
     bound = rows * C * 2 * pd.KDIM / INT8_OPS_PER_S * 1e3
-    digest = hashlib.sha256(counts.cpu().numpy().tobytes()).hexdigest()[:16]
-    print(f"time_counts_kernel {root} {args.shape}: {rows} rows that can "
-          f"match ({compacted[0].shape[0]} compacted) x {C} positions; "
-          f"kernel alone {mean:.4f} ms (" + ", ".join(f"{m:.4f}" for m in ms)
+    print(f"time_counts_kernel {root} {args.shape}: "
+          f"{'fused pass' if fused else 'counts + emit'}; {rows} rows that "
+          f"can match ({compacted[0].shape[0]} compacted) x {C} positions; "
+          f"kernels alone {mean:.4f} ms{split} ("
+          + ", ".join(f"{m:.4f}" for m in ms)
           + f"); bound {bound:.4f} ms (operations); share "
-          f"{bound / mean:.4f}; launches {launches}; hits "
-          f"{int(counts.sum())}; counts digest {digest} ({smi})")
+          f"{bound / mean:.4f}; launches {launches}; hits {hits}; hits "
+          f"digest {digest} ({smi})")
     return 0
 
 
