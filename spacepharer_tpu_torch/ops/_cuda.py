@@ -7,6 +7,13 @@ concurrent processes never load a half-written library and a changed
 source can never load a stale one. Nothing here runs at import time.
 A build runs in the span kernel_build and adds one to kernel_builds;
 upload() copies a host array to the card and counts its bytes.
+
+Every launch of a kernel crosses into its library here, through an Entry:
+the launch function's C signature declared once beside the wrapper that
+calls it, the tensors passed as pointers, the current stream appended,
+a CUDA error raised, the launch counted. check() and on_card() are the
+wrappers' input checks, expect() holds a module's constants to its
+library's.
 """
 import ctypes
 import hashlib
@@ -80,3 +87,111 @@ def upload(x, device):
     if dev.type == "cuda" and t.device.type == "cpu":
         count("h2d_bytes", t.numel() * t.element_size())
     return t.to(dev)
+
+
+# argtypes of a launch function's arguments: a pointer (pass a tensor), an
+# int, a long long, and a short int array (pass a tuple of ints)
+PTR, INT, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+INTS = ctypes.POINTER(ctypes.c_int)
+
+
+def on_card(who: str, x) -> bool:
+    """True where tensor x lies on a CUDA card, False where it lies on the
+    CPU (the plain version's device); ValueError on any other device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
+def check(who: str, name: str, x, dtype, device, numel=None):
+    """Raise ValueError unless x is a contiguous `dtype` tensor on
+    `device` (of `numel` elements, where given)."""
+    if x.device != device or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{who}: {name} must be a contiguous {dtype} "
+                         f"tensor on {device}, got {x.dtype} on {x.device}")
+    if numel is not None and x.numel() != numel:
+        raise ValueError(f"{who}: {name} must have {numel} elements, got "
+                         f"{x.numel()}")
+
+
+def expect(lib, who: str, constants: dict):
+    """Raise RuntimeError unless every function of lib named in
+    `constants` reports the value given: an int function's return, or,
+    for a tuple, the ints that a void function writes to its one array
+    argument."""
+    for name, want in constants.items():
+        fn = getattr(lib, name)
+        if isinstance(want, tuple):
+            out = (ctypes.c_int * len(want))()
+            fn(out)
+            got = tuple(out)
+        else:
+            got = fn()
+        if got != want:
+            raise RuntimeError(f"{who}: the kernel's {name} is {got}, this "
+                               f"module's {want}")
+
+
+def current_stream(device) -> int:
+    """The handle of `device`'s current CUDA stream."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+class Entry:
+    """One launch function of a kernel library: `<name>_launch` of
+    csrc/<lib>.cu, whose arguments are `argtypes` and then the stream
+    (every launch function takes it last and returns a CUDA error code).
+    `constants` ({function: value}, for expect) are checked when the
+    library is first loaded here.
+
+    Calling it with the arguments in declared order (a tensor for each
+    PTR, a tuple for each INTS, an int for the rest) launches on the
+    current stream of the first tensor's device, raises RuntimeError on a
+    non-zero return, and adds one to the registry's `<counter>_launches`
+    and `cells` to the counter named `cells_counter` (logging.count),
+    where those are given."""
+
+    def __init__(self, lib: str, name: str, argtypes, counter=None,
+                 cells_counter=None, constants=None):
+        self.lib, self.name, self.argtypes = lib, name, tuple(argtypes)
+        self.counter, self.cells_counter = counter, cells_counter
+        self.constants = constants or {}
+        self._fn = None
+
+    def function(self):
+        """The launch function, its library loaded (built if needed) and
+        its constants checked at the first call."""
+        if self._fn is None:
+            lib = library(self.lib)
+            expect(lib, self.name, self.constants)
+            fn = getattr(lib, self.name + "_launch")
+            fn.argtypes = [*self.argtypes, PTR]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, *args, cells: int = 0):
+        import torch
+        if len(args) != len(self.argtypes):
+            raise TypeError(f"{self.name}: {len(self.argtypes)} arguments "
+                            f"declared, {len(args)} given")
+        fn = self.function()
+        device, c_args = None, []
+        for a in args:
+            if isinstance(a, torch.Tensor):
+                if device is None:
+                    device = a.device
+                c_args.append(a.data_ptr())
+            elif isinstance(a, tuple):
+                c_args.append((ctypes.c_int * len(a))(*a))
+            else:
+                c_args.append(a)
+        err = fn(*c_args, current_stream(device))
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
+                               f"error {err}")
+        if self.counter:
+            count(self.counter + "_launches")
+        if self.cells_counter:
+            count(self.cells_counter, cells)

@@ -43,7 +43,6 @@ more), and the per-tile hit counts whose tiles were computed again, to
 extract their hit masks on the host in batches of 64 tiles. Chunks here
 are bounded by card memory alone (MAX_Q_ROWS, MAX_CHUNK, HIT_CAPACITY).
 """
-import ctypes
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -51,7 +50,7 @@ import numpy as np
 import torch
 
 from ..logging import count, span
-from ._cuda import upload
+from ._cuda import I64, INT, INTS, PTR, Entry, check, on_card, upload
 from .bias import round_half_away
 
 X_IDX = 20
@@ -62,6 +61,7 @@ KDIM = 128     # Qexp columns (6 * 21 = 126 used)
 N_OFF = 6      # offsets the kernel reads (fewer: zero Qexp blocks)
 MAX_K = N_OFF * 127   # no K of an int8 Qexp exceeds this: larger thr never hit
 ROW_TILE = 128        # compacted rows per stage of the kernel
+MAX_OFFSET = 127      # largest spaced offset the kernel takes
 
 # Memory bounds of the dense pass; output never depends on them. A query
 # chunk holds Qexp + thr on the card (132 B per row: 138 MB at
@@ -82,10 +82,12 @@ PLAIN_MAX_ELEMS = 1 << 26
 # prefilter_dense_hits_launches, and in prefilter_dense_hits_cells the
 # cells (compacted rows x target positions) the kernel covered; the plain
 # CPU path counts in neither.
-# None, or a list to which each kernel call appends a (start, stop) pair
-# of CUDA events recorded around its launch alone (the cursor's zeroing
-# included, the row compaction and the read-back left out)
-launch_events = None
+_HITS = Entry("prefilter_dense", "prefilter_dense_hits",
+              (PTR, PTR, PTR, PTR, PTR, INTS, INT, INT, PTR, PTR, I64, PTR),
+              counter="prefilter_dense_hits",
+              cells_counter="prefilter_dense_hits_cells",
+              constants={"prefilter_dense_row_tile": ROW_TILE,
+                         "prefilter_dense_max_offset": MAX_OFFSET})
 
 
 @dataclass
@@ -334,17 +336,6 @@ def prefilter_dense_hits_plain(compacted, letters, tval, offsets, gi, gj,
     cursor.fill_(n)
 
 
-def _check(name, x, dtype, dev):
-    if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-        raise ValueError(f"prefilter_dense: {name} must be a contiguous "
-                         f"{dtype} tensor on {dev}, got {x.dtype} on "
-                         f"{x.device}")
-
-
-def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
-
-
 def _check_inputs(compacted, letters, tval, offs, gi, gj, cursor):
     """Raise unless the kernel takes these inputs (the shared layout and
     compact_rows' form, on one device)."""
@@ -357,7 +348,7 @@ def _check_inputs(compacted, letters, tval, offs, gi, gj, cursor):
                            ("tval", tval, torch.uint8),
                            ("gi", gi, torch.int32), ("gj", gj, torch.int32),
                            ("cursor", cursor, torch.int64)):
-        _check(name, x, dtype, dev)
+        check("prefilter_dense", name, x, dtype, dev)
     rc, C = qexp_c.shape[0], tval.numel()
     if (qexp_c.dim() != 2 or qexp_c.shape[1] != KDIM or rc % ROW_TILE
             or rc == 0 or thr_c.numel() != rc or row_id.numel() != rc):
@@ -370,6 +361,9 @@ def _check_inputs(compacted, letters, tval, offs, gi, gj, cursor):
     if C % TILE_T or C == 0 or C > 0x7fffffff:
         raise ValueError(f"prefilter_dense: tval length must be a positive "
                          f"multiple of {TILE_T} below 2^31")
+    if max(offs) > MAX_OFFSET:
+        raise ValueError(f"prefilter_dense: the kernel takes spaced offsets "
+                         f"up to {MAX_OFFSET}")
     if letters.numel() < C + max(offs):
         raise ValueError("prefilter_dense: letters must cover every "
                          "position's k-mer")
@@ -390,43 +384,14 @@ def prefilter_dense_hits(compacted, letters, tval, offsets, gi, gj,
     zeroed first) and raises if the kernel cannot be built or launched;
     on CPU tensors it runs prefilter_dense_hits_plain."""
     offs = pad_offsets(offsets)
-    dev = compacted[0].device
-    if dev.type == "cpu":
+    if not on_card("prefilter_dense_hits", compacted[0]):
         return prefilter_dense_hits_plain(compacted, letters, tval, offsets,
                                           gi, gj, cursor)
-    if dev.type != "cuda":
-        raise ValueError(f"prefilter_dense_hits: unsupported device {dev}")
     _check_inputs(compacted, letters, tval, offs, gi, gj, cursor)
     qexp_c, thr_c, row_id = compacted
-    from ._cuda import library
-    lib = library("prefilter_dense")
-    if lib.prefilter_dense_row_tile() != ROW_TILE:
-        raise RuntimeError("prefilter_dense: ROW_TILE disagrees with the "
-                           "kernel")
-    if max(offs) > lib.prefilter_dense_max_offset():
-        raise ValueError(f"prefilter_dense_hits: the kernel takes spaced "
-                         f"offsets up to {lib.prefilter_dense_max_offset()}")
     rc, C = qexp_c.shape[0], tval.numel()
-    stream = torch.cuda.current_stream(dev)
-    events = None
-    if launch_events is not None:
-        events = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        events[0].record(stream)
-    err = lib.prefilter_dense_hits_launch(
-        _ptr(qexp_c), _ptr(thr_c), _ptr(row_id), _ptr(letters), _ptr(tval),
-        (ctypes.c_int * N_OFF)(*offs), ctypes.c_int(rc),
-        ctypes.c_int(C // TILE_T), _ptr(gi), _ptr(gj),
-        ctypes.c_longlong(gi.numel()), _ptr(cursor),
-        ctypes.c_void_p(stream.cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"prefilter_dense_hits kernel launch failed: "
-                           f"CUDA error {err}")
-    if events is not None:
-        events[1].record(stream)
-        launch_events.append(events)
-    count("prefilter_dense_hits_launches")
-    count("prefilter_dense_hits_cells", rc * C)
+    _HITS(qexp_c, thr_c, row_id, letters, tval, offs, rc, C // TILE_T, gi,
+          gj, gi.numel(), cursor, cells=rc * C)
 
 
 def chunk_hits(compacted, letters, tval, offsets, buffer):
@@ -633,12 +598,27 @@ RANK_CHUNK = 2048
 # keys sort in two stable passes (target sequence, then the rest)
 KEY_BITS = 63
 
+RUN_TILE = 4096      # sorted hits per block of the run kernels
+
 # Each stream wrapper's calls that launched its kernels count in the
 # registry as prefilter_streams_{ranks,keys,runs}_launches (the plain
 # versions count in none of them).
-# None, or a list to which each stream wrapper's call appends (its name,
-# [(start, stop) CUDA events around each of its kernel launches])
-streams_events = None
+_STREAMS = {"prefilter_streams_query_halves": N_QUERY_HALVES,
+            "prefilter_streams_target_halves": N_HALF,
+            "prefilter_streams_run_tile": RUN_TILE}
+_HALVES = Entry("prefilter_streams", "prefilter_streams_halves",
+                (PTR, I64, I64, PTR, INTS, PTR, PTR, PTR, PTR),
+                counter="prefilter_streams_ranks", constants=_STREAMS)
+_TABLES = Entry("prefilter_streams", "prefilter_streams_tables",
+                (PTR, INT, PTR, INT, PTR), constants=_STREAMS)
+_KEYS = Entry("prefilter_streams", "prefilter_streams_keys",
+              (PTR, PTR, I64, I64, PTR, INTS, PTR, I64, PTR, INT, PTR, PTR,
+               INT, INT, PTR, PTR, PTR, PTR),
+              counter="prefilter_streams_keys", constants=_STREAMS)
+_RUNS = Entry("prefilter_streams", "prefilter_streams_runs",
+              (PTR, PTR, PTR, PTR, PTR, I64, INT, PTR, INT, PTR, PTR, PTR,
+               PTR, PTR), counter="prefilter_streams_runs",
+              constants=_STREAMS)
 
 
 def query_halves(q_flat, offsets, rows):
@@ -767,33 +747,6 @@ def stream_runs_plain(perm, key, tseq, tpos, gi, q_starts, n_keys: int):
             torch.tensor([n_runs], dtype=torch.int64, device=dev))
 
 
-def _launch(name, dev, fn, *args):
-    """Run one C launch function on dev's current stream; raise on a CUDA
-    error. Returns the (start, stop) events around it when timing."""
-    events = None
-    stream = torch.cuda.current_stream(dev)
-    if streams_events is not None:
-        events = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        events[0].record(stream)
-    err = fn(*args, ctypes.c_void_p(stream.cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    if events is not None:
-        events[1].record(stream)
-    return events
-
-
-def _streams_lib(name, dev, **tensors):
-    """The stream kernels' library, after checking that every named
-    tensor is a contiguous tensor on `dev` of the given dtype (tensors
-    maps a name to (tensor, dtype))."""
-    for what, (x, dtype) in tensors.items():
-        _check(f"{name} {what}", x, dtype, dev)
-    from ._cuda import library
-    return library("prefilter_streams")
-
-
 def stream_rank_tables(q_flat, offsets, gi, n_rows: int, seed):
     """(slot_of int32 [N_QUERY_HALVES], tables int16 [n_uniq, N_HALF]):
     the rank tables of the hit rows' query halves (stream_rank_tables_plain
@@ -805,14 +758,13 @@ def stream_rank_tables(q_flat, offsets, gi, n_rows: int, seed):
     launches rank_tables_kernel (one block of 256 threads per half); it
     raises if a kernel cannot be built or launched. On CPU tensors it
     runs stream_rank_tables_plain."""
-    dev = gi.device
-    if dev.type == "cpu":
+    if not on_card("stream_rank_tables", gi):
         return stream_rank_tables_plain(q_flat, offsets, gi, n_rows, seed)
-    if dev.type != "cuda":
-        raise ValueError(f"stream_rank_tables: unsupported device {dev}")
-    lib = _streams_lib("stream_rank_tables", dev, gi=(gi, torch.int32),
-                       q_flat=(q_flat, torch.uint8),
-                       seed=(seed, torch.int32))
+    dev = gi.device
+    for name, x, dtype in (("gi", gi, torch.int32),
+                           ("q_flat", q_flat, torch.uint8),
+                           ("seed", seed, torch.int32)):
+        check("stream_rank_tables", name, x, dtype, dev)
     if (seed.dim() != 2 or seed.shape[0] != seed.shape[1]
             or seed.shape[0] <= X_IDX or int(seed.abs().max()) > 127):
         raise ValueError("stream_rank_tables: the seed matrix must be "
@@ -822,20 +774,11 @@ def stream_rank_tables(q_flat, offsets, gi, n_rows: int, seed):
     slot_of = torch.empty(N_QUERY_HALVES, dtype=torch.int32, device=dev)
     uniq = torch.empty(N_QUERY_HALVES, dtype=torch.int32, device=dev)
     n_uniq = torch.empty(1, dtype=torch.int32, device=dev)
-    ev = [_launch("stream_rank_tables", dev, lib.prefilter_streams_halves_launch,
-                  _ptr(gi), ctypes.c_longlong(gi.numel()),
-                  ctypes.c_longlong(n_rows), _ptr(q_flat),
-                  (ctypes.c_int * N_OFF)(*offsets), _ptr(present),
-                  _ptr(slot_of), _ptr(uniq), _ptr(n_uniq))]
+    _HALVES(gi, gi.numel(), n_rows, q_flat, pad_offsets(offsets), present,
+            slot_of, uniq, n_uniq)
     n_u = int(n_uniq.item())
     tables = torch.empty((n_u, N_HALF), dtype=torch.int16, device=dev)
-    ev.append(_launch("stream_rank_tables", dev,
-                      lib.prefilter_streams_tables_launch, _ptr(uniq),
-                      ctypes.c_int(n_u), _ptr(seed),
-                      ctypes.c_int(seed.shape[1]), _ptr(tables)))
-    if streams_events is not None:
-        streams_events.append(("ranks", ev))
-    count("prefilter_streams_ranks_launches")
+    _TABLES(uniq, n_u, seed, seed.shape[1], tables)
     return slot_of, tables
 
 
@@ -850,17 +793,17 @@ def stream_keys(gi, gj, q_flat, offsets, n_rows: int, t_flat, t_starts,
     On CUDA tensors this launches csrc/prefilter_streams.cu's keys_kernel
     (one thread per hit) and raises if it cannot be built or launched; on
     CPU tensors it runs stream_keys_plain."""
-    dev = gi.device
-    if dev.type == "cpu":
+    if not on_card("stream_keys", gi):
         return stream_keys_plain(gi, gj, q_flat, offsets, n_rows, t_flat,
                                  t_starts, slot_of, tables, seq_bits, narrow)
-    if dev.type != "cuda":
-        raise ValueError(f"stream_keys: unsupported device {dev}")
-    lib = _streams_lib(
-        "stream_keys", dev, gi=(gi, torch.int32), gj=(gj, torch.int64),
-        q_flat=(q_flat, torch.uint8), t_flat=(t_flat, torch.uint8),
-        t_starts=(t_starts, torch.int64), slot_of=(slot_of, torch.int32),
-        tables=(tables, torch.int16))
+    dev = gi.device
+    for name, x, dtype in (("gi", gi, torch.int32), ("gj", gj, torch.int64),
+                           ("q_flat", q_flat, torch.uint8),
+                           ("t_flat", t_flat, torch.uint8),
+                           ("t_starts", t_starts, torch.int64),
+                           ("slot_of", slot_of, torch.int32),
+                           ("tables", tables, torch.int16)):
+        check("stream_keys", name, x, dtype, dev)
     n = gi.numel()
     if gj.numel() != n or t_starts.numel() - 1 > 0x7fffffff:
         raise ValueError("stream_keys: gi and gj must pair up, and the "
@@ -869,17 +812,9 @@ def stream_keys(gi, gj, q_flat, offsets, n_rows: int, t_flat, t_starts,
     tseq = torch.empty(n, dtype=torch.int32, device=dev)
     tpos = torch.empty(n, dtype=torch.int32, device=dev)
     bad = torch.zeros(1, dtype=torch.int32, device=dev)
-    ev = _launch("stream_keys", dev, lib.prefilter_streams_keys_launch, _ptr(gi),
-                 _ptr(gj), ctypes.c_longlong(n), ctypes.c_longlong(n_rows),
-                 _ptr(q_flat), (ctypes.c_int * N_OFF)(*offsets),
-                 _ptr(t_flat), ctypes.c_longlong(t_flat.numel()),
-                 _ptr(t_starts), ctypes.c_int(t_starts.numel() - 1),
-                 _ptr(slot_of), _ptr(tables), ctypes.c_int(seq_bits),
-                 ctypes.c_int(int(narrow)), _ptr(key), _ptr(tseq),
-                 _ptr(tpos), _ptr(bad))
-    if streams_events is not None:
-        streams_events.append(("keys", [ev]))
-    count("prefilter_streams_keys_launches")
+    _KEYS(gi, gj, n, n_rows, q_flat, pad_offsets(offsets), t_flat,
+          t_flat.numel(), t_starts, t_starts.numel() - 1, slot_of, tables,
+          seq_bits, int(narrow), key, tseq, tpos, bad)
     return key, tseq, tpos, bad
 
 
@@ -897,16 +832,17 @@ def stream_runs(perm, key, tseq, tpos, gi, q_starts, n_keys: int,
     On CUDA tensors this launches csrc/prefilter_streams.cu's
     run_count_kernel and run_write_kernel and raises if they cannot be
     built or launched; on CPU tensors it runs stream_runs_plain."""
-    dev = perm.device
-    if dev.type == "cpu":
+    if not on_card("stream_runs", perm):
         return stream_runs_plain(perm, key, tseq, tpos, gi, q_starts, n_keys)
-    if dev.type != "cuda":
-        raise ValueError(f"stream_runs: unsupported device {dev}")
-    lib = _streams_lib(
-        "stream_runs", dev, perm=(perm, torch.int64), key=(key, torch.int64),
-        sorted_key=(sorted_key, torch.int64), tseq=(tseq, torch.int32),
-        tpos=(tpos, torch.int32), gi=(gi, torch.int32),
-        q_starts=(q_starts, torch.int64))
+    dev = perm.device
+    for name, x, dtype in (("perm", perm, torch.int64),
+                           ("key", key, torch.int64),
+                           ("sorted_key", sorted_key, torch.int64),
+                           ("tseq", tseq, torch.int32),
+                           ("tpos", tpos, torch.int32),
+                           ("gi", gi, torch.int32),
+                           ("q_starts", q_starts, torch.int64)):
+        check("stream_runs", name, x, dtype, dev)
     n = perm.numel()
     if not (key.numel() == sorted_key.numel() == tseq.numel() == tpos.numel()
             == gi.numel() == n and q_starts.numel() == n_keys + 1
@@ -915,21 +851,14 @@ def stream_runs(perm, key, tseq, tpos, gi, q_starts, n_keys: int,
         raise ValueError("stream_runs: one key, sorted key, sequence, "
                          "position and row per hit, one start per query "
                          "key and its end, and a packing inside the key")
-    nb = max(-(-n // lib.prefilter_streams_run_tile()), 1)
+    nb = max(-(-n // RUN_TILE), 1)
     block_off = torch.empty(nb + 1, dtype=torch.int64, device=dev)
     m_t = torch.empty(n, dtype=torch.int32, device=dev)
     m_d = torch.empty(n, dtype=torch.uint16, device=dev)
     n_runs = torch.empty(1, dtype=torch.int64, device=dev)
     bounds = torch.empty(n_keys + 1, dtype=torch.int64, device=dev)
-    ev = _launch("stream_runs", dev, lib.prefilter_streams_runs_launch,
-                 _ptr(sorted_key), _ptr(perm), _ptr(tseq), _ptr(tpos),
-                 _ptr(gi), ctypes.c_longlong(n),
-                 ctypes.c_int(seq_bits if narrow else -1),
-                 _ptr(q_starts), ctypes.c_int(n_keys), _ptr(block_off),
-                 _ptr(m_t), _ptr(m_d), _ptr(n_runs), _ptr(bounds))
-    if streams_events is not None:
-        streams_events.append(("runs", [ev]))
-    count("prefilter_streams_runs_launches")
+    _RUNS(sorted_key, perm, tseq, tpos, gi, n, seq_bits if narrow else -1,
+          q_starts, n_keys, block_off, m_t, m_d, n_runs, bounds)
     return m_t, m_d, bounds, n_runs
 
 

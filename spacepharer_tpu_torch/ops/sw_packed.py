@@ -51,13 +51,11 @@ gather and harvest matmul have no counterpart: they map its DP onto
 query-length limit, so every query rides the kernel (the TPU path sent
 queries with bound >= 4096 or length > 2048 to the bucketed scan).
 """
-import ctypes
-
 import numpy as np
 import torch
 
 from ..logging import count, span
-from ._cuda import upload
+from ._cuda import I64, INT, PTR, Entry, check, on_card, upload
 
 A_PAD = 32            # profile columns; letters 21..31 are pad
 PAD_LETTER = A_PAD - 1
@@ -71,13 +69,14 @@ T_PAD = 8             # readable bytes the pair kernel needs past t_seqs' end
 PAIR_CHUNK = 1 << 24  # pairs per sw_pairs call in device_pair_scores
 # serial work (query stripes x target length) from which a pair leaves the
 # pair kernel's bulk (a thread a pair) for its tail (a half-warp a pair).
-# tools/time_pair_kernel.py --sweep on chip_smoke.py phase 3's first search
+# Swept by tools/time_pair_kernel.py --sweep (since removed; in git
+# history from commit a270f26) on chip_smoke.py phase 3's first search
 # (46,605 pairs; NVIDIA H100 80GB HBM3, 700 W): the kernels took 0.1129,
 # 0.0859, 0.0857, 0.0854 ms at 256, 384, 512, 640 (7,699, 3,380, 1,774 and
 # 604 tail pairs): flat from 384 to 640, 512 in its middle
 PAIR_TAIL_WORK = 512
 # the pair kernel's layout, as csrc/sw_allpairs.cu's sw_pairs_layout()
-# reports it (checked when the library is first used)
+# reports it (checked when the library is first loaded)
 TAIL_KEY = 1 << 14    # int16 sort-key bit of a tail pair
 KEY_LEN_BITS = 11     # a bulk key: stripes, > SHORT_ROWS rows, length
 SHORT_ROWS = 12       # rows of the bulk's variant for short queries
@@ -91,13 +90,23 @@ PROFILE_FLAG_LETTER = 2  # pair_profile.cu's flag bit: a letter >= alpha
 # pair_cells, and the launches of its key pass (pair_keys) in
 # sw_pairs_keys_launches; pair_profile's launches (csrc/pair_profile.cu)
 # in pair_profile_launches. The plain CPU path counts in none of them.
-# None, or a list to which each kernel call appends a (start, stop) pair of
-# CUDA events recorded around its launches alone (the host work of the
-# wrapper left out)
-launch_events = None
-# None or a list to which each pair_profile launch appends a (start, stop)
-# pair of CUDA events recorded around it
-profile_events = None
+_LAYOUT = {"sw_allpairs_stripe": STRIPE,
+           "sw_pairs_layout": (STRIPE, TAIL_KEY, KEY_LEN_BITS, SHORT_ROWS,
+                               LINE_COLS)}
+_ALLPAIRS = Entry("sw_allpairs", "sw_allpairs",
+                  (PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, I64, INT, INT,
+                   PTR, PTR), counter="sw_allpairs",
+                  cells_counter="sw_allpairs_cells", constants=_LAYOUT)
+_PAIR_KEYS = Entry("sw_allpairs", "sw_pairs_keys",
+                   (PTR, PTR, PTR, PTR, INT, I64, PTR, PTR, PTR),
+                   counter="sw_pairs_keys", constants=_LAYOUT)
+_PAIRS = Entry("sw_allpairs", "sw_pairs",
+               (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, I64,
+                INT, INT, PTR, PTR), counter="sw_pairs", constants=_LAYOUT)
+_PROFILE = Entry("pair_profile", "pair_profile",
+                 (PTR, PTR, PTR, INT, I64, PTR, PTR, INT, INT, PTR, PTR),
+                 counter="pair_profile",
+                 constants={"pair_profile_max_alpha": A_PAD})
 
 
 def pack_queries(q_list, matrix_scores, bias_list=None):
@@ -151,6 +160,25 @@ def pack_runs(letters, lens, alpha: int, pad: int):
         t_seqs[pos] = torch.where((x >= 0) & (x < alpha), x,
                                   alpha).to(torch.uint8)
     return t_seqs, t_off, s_lens.to(torch.int32), order
+
+
+def scratch_slots(q_lens, stripe: int, t_total: int, scratch_bytes: int):
+    """(slot int32 [n_q], n_slots, bounds) of kernels B1 (sw_allpairs) and
+    B4: a query longer than one stripe hands its stripe boundaries
+    through a scratch line of one int2 per packed target letter (t_total),
+    and a launch has scratch_bytes of lines. The long queries take slots
+    0, 1, ... in order, per_launch = scratch_bytes // (8 t_total) of them
+    (at least 1) a launch; slot[q] is query q's slot (-1 for a short
+    one), n_slots the lines to allocate, and launch k takes the queries
+    bounds[k]:bounds[k + 1]. q_lens: the query lengths, a CPU tensor."""
+    long_q = q_lens > stripe
+    per_launch = max(1, scratch_bytes // (8 * t_total))
+    rank = torch.cumsum(long_q.long(), 0) - 1
+    slot = torch.where(long_q, rank % per_launch, -1).int()
+    group = torch.clamp_min(rank, 0) // per_launch
+    bounds = [0] + (torch.nonzero(group[1:] != group[:-1]).flatten()
+                    + 1).tolist() + [q_lens.numel()]
+    return slot, min(int(long_q.sum()), per_launch), bounds
 
 
 def pack_targets(t_list):
@@ -226,12 +254,6 @@ def sw_allpairs_plain(prof, q_off, t_seqs, t_off, t_len,
     return out
 
 
-def _check(name, x, dtype, dev, who="sw_allpairs"):
-    if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-        raise ValueError(f"{who}: {name} must be a contiguous {dtype} "
-                         f"tensor on {dev}, got {x.dtype} on {x.device}")
-
-
 def sw_allpairs(prof, q_off, t_seqs, t_off, t_len, gap_open: int = 16,
                 gap_extend: int = 2) -> torch.Tensor:
     """int32 [n_q, n_t] best SW scores (layout: module docstring).
@@ -239,76 +261,36 @@ def sw_allpairs(prof, q_off, t_seqs, t_off, t_len, gap_open: int = 16,
     On CUDA tensors this launches csrc/sw_allpairs.cu and raises if the
     kernel cannot be built or launched; on CPU tensors it runs
     sw_allpairs_plain."""
-    dev = prof.device
-    if dev.type == "cpu":
+    if not on_card("sw_allpairs", prof):
         return sw_allpairs_plain(prof, q_off, t_seqs, t_off, t_len,
                                  gap_open, gap_extend)
-    if dev.type != "cuda":
-        raise ValueError(f"sw_allpairs: unsupported device {dev}")
+    dev = prof.device
     for name, x, dtype in (("prof", prof, torch.int32),
                            ("q_off", q_off, torch.int64),
                            ("t_seqs", t_seqs, torch.uint8),
                            ("t_off", t_off, torch.int64),
                            ("t_len", t_len, torch.int32)):
-        _check(name, x, dtype, dev)
+        check("sw_allpairs", name, x, dtype, dev)
     if prof.dim() != 2 or prof.shape[1] != A_PAD:
         raise ValueError(f"sw_allpairs: prof must be [R, {A_PAD}]")
     if t_seqs.data_ptr() % T_ALIGN:
         raise ValueError("sw_allpairs: t_seqs must be 16-byte aligned")
-    from ._cuda import library
-    lib = library("sw_allpairs")
-    if lib.sw_allpairs_stripe() != STRIPE:
-        raise RuntimeError("sw_allpairs: STRIPE disagrees with the kernel")
     n_q, n_t = q_off.numel() - 1, t_len.numel()
     out = torch.empty((n_q, n_t), dtype=torch.int32, device=dev)
     if n_q == 0 or n_t == 0:
         return out
-    # queries longer than one stripe hand stripe boundaries through a
-    # scratch line per target residue; bound it per launch
     q_lens = (q_off[1:] - q_off[:-1]).cpu()
     t_total = t_seqs.numel()
-    long_q = q_lens > STRIPE
-    per_launch = max(1, SCRATCH_BYTES // (8 * t_total))
-    slot = torch.full((n_q,), -1, dtype=torch.int32)
-    group = torch.zeros(n_q, dtype=torch.int64)
-    if bool(long_q.any()):
-        rank = torch.cumsum(long_q.long(), 0) - 1
-        slot[long_q] = (rank[long_q] % per_launch).int()
-        group = torch.clamp_min(rank, 0) // per_launch
-    n_slots = min(int(long_q.sum()), per_launch)
+    slot, n_slots, bounds = scratch_slots(q_lens, STRIPE, t_total,
+                                          SCRATCH_BYTES)
     scratch = torch.empty(max(n_slots * t_total * 2, 2), dtype=torch.int32,
                           device=dev)
     slot_d = slot.to(dev)
-    cur = torch.cuda.current_stream(dev)
-    stream = cur.cuda_stream
-    bounds = [0] + (torch.nonzero(group[1:] != group[:-1]).flatten() + 1
-                    ).tolist() + [n_q]
     t_cells = int(t_len.sum())
-    events = None
-    if launch_events is not None:
-        events = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        events[0].record(cur)
     for q0, q1 in zip(bounds[:-1], bounds[1:]):
-        err = lib.sw_allpairs_launch(
-            ctypes.c_void_p(prof.data_ptr()),
-            ctypes.c_void_p(q_off[q0:].data_ptr()),
-            ctypes.c_void_p(slot_d[q0:].data_ptr()),
-            ctypes.c_void_p(t_seqs.data_ptr()),
-            ctypes.c_void_p(t_off.data_ptr()),
-            ctypes.c_void_p(t_len.data_ptr()),
-            ctypes.c_int(q1 - q0), ctypes.c_int(n_t),
-            ctypes.c_longlong(t_total), ctypes.c_int(gap_open),
-            ctypes.c_int(gap_extend), ctypes.c_void_p(scratch.data_ptr()),
-            ctypes.c_void_p(out[q0:].data_ptr()), ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(f"sw_allpairs kernel launch failed: CUDA "
-                               f"error {err}")
-        count("sw_allpairs_launches")
-        count("sw_allpairs_cells", int(q_lens[q0:q1].sum()) * t_cells)
-    if events is not None:
-        events[1].record(cur)
-        launch_events.append(events)
+        _ALLPAIRS(prof, q_off[q0:], slot_d[q0:], t_seqs, t_off, t_len,
+                  q1 - q0, n_t, t_total, gap_open, gap_extend, scratch,
+                  out[q0:], cells=int(q_lens[q0:q1].sum()) * t_cells)
     return out
 
 
@@ -471,56 +453,30 @@ def pair_profile(letters, q_off, q_stripe, n_stripes, scores, expected,
     profile value leaves [-127, 127], or, on a card, where a query letter
     lies outside the matrix's alphabet."""
     dev = letters.device
-    if dev.type == "cpu":
+    if not on_card("pair_profile", letters):
         prof, in_range = pair_profile_plain(letters, q_off, q_stripe,
                                             n_stripes, scores, expected,
                                             comp_bias)
-    elif dev.type != "cuda":
-        raise ValueError(f"pair_profile: unsupported device {dev}")
     else:
         for name, x, dtype in (("letters", letters, torch.uint8),
                                ("q_off", q_off, torch.int64),
                                ("q_stripe", q_stripe, torch.int64),
                                ("scores", scores, torch.int32),
                                ("expected", expected, torch.float64)):
-            _check(name, x, dtype, dev, "pair_profile")
-        from ._cuda import library
-        lib = library("pair_profile")
+            check("pair_profile", name, x, dtype, dev)
         alpha = scores.shape[-1]
         if (scores.dim() != 2 or scores.shape[0] != alpha
-                or expected.numel() != alpha
-                or alpha > lib.pair_profile_max_alpha()):
-            raise ValueError("pair_profile: scores must be [alpha, alpha] "
-                             "and expected [alpha], alpha <= 32")
+                or expected.numel() != alpha or alpha > A_PAD):
+            raise ValueError(f"pair_profile: scores must be [alpha, alpha] "
+                             f"and expected [alpha], alpha <= {A_PAD}")
         prof = torch.empty((n_stripes, A_PAD, STRIPE), dtype=torch.int8,
                            device=dev)
         flag = 0
         if n_stripes:
             flag_d = torch.empty(1, dtype=torch.int32, device=dev)
-            cur = torch.cuda.current_stream(dev)
-            events = None
-            if profile_events is not None:
-                events = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                events[0].record(cur)
-            err = lib.pair_profile_launch(
-                ctypes.c_void_p(letters.data_ptr()),
-                ctypes.c_void_p(q_off.data_ptr()),
-                ctypes.c_void_p(q_stripe.data_ptr()),
-                ctypes.c_int(q_off.numel() - 1), ctypes.c_longlong(n_stripes),
-                ctypes.c_void_p(scores.data_ptr()),
-                ctypes.c_void_p(expected.data_ptr()), ctypes.c_int(alpha),
-                ctypes.c_int(int(bool(comp_bias))),
-                ctypes.c_void_p(prof.data_ptr()),
-                ctypes.c_void_p(flag_d.data_ptr()),
-                ctypes.c_void_p(cur.cuda_stream))
-            if err != 0:
-                raise RuntimeError(f"pair_profile kernel launch failed: "
-                                   f"CUDA error {err}")
-            count("pair_profile_launches")
-            if events is not None:
-                events[1].record(cur)
-                profile_events.append(events)
+            _PROFILE(letters, q_off, q_stripe, q_off.numel() - 1, n_stripes,
+                     scores, expected, alpha, int(bool(comp_bias)), prof,
+                     flag_d)
             flag = int(flag_d)
         if flag & PROFILE_FLAG_LETTER:
             raise ValueError("pair_profile: query letters must lie in the "
@@ -599,26 +555,6 @@ def sw_pairs_plain(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
     return out
 
 
-_pairs_lib = None
-
-
-def _pairs_library():
-    """csrc/sw_allpairs.cu's library, built if needed, once its stripe and
-    its pair layout were found equal to this module's constants."""
-    global _pairs_lib
-    if _pairs_lib is None:
-        from ._cuda import library
-        lib = library("sw_allpairs")
-        got = (ctypes.c_int * 5)()
-        lib.sw_pairs_layout(got)
-        want = (STRIPE, TAIL_KEY, KEY_LEN_BITS, SHORT_ROWS, LINE_COLS)
-        if tuple(got) != want:
-            raise RuntimeError(f"sw_pairs: the kernel's layout {tuple(got)} "
-                               f"disagrees with sw_packed's {want}")
-        _pairs_lib = lib
-    return _pairs_lib
-
-
 def pair_keys_plain(q_len, t_off, pair_q, pair_t, tail_work: int):
     """Plain PyTorch version of the pair kernel's key pass, on the inputs'
     device: (int16 [n] sort keys, int64 [n] scratch int2s, int64 [2]:
@@ -652,25 +588,14 @@ def pair_keys(q_len, t_off, pair_q, pair_t, tail_work: int):
     csrc/sw_allpairs.cu (the counts zeroed by its launcher; one more in
     sw_pairs_keys_launches) and raises if it cannot be built or launched; on
     CPU tensors it runs pair_keys_plain."""
-    dev = pair_q.device
-    if dev.type == "cpu":
+    if not on_card("pair_keys", pair_q):
         return pair_keys_plain(q_len, t_off, pair_q, pair_t, tail_work)
-    lib = _pairs_library()
+    dev = pair_q.device
     n = pair_q.numel()
     key = torch.empty(n, dtype=torch.int16, device=dev)
     need = torch.empty(n, dtype=torch.int64, device=dev)
     stats = torch.empty(2, dtype=torch.int64, device=dev)
-    err = lib.sw_pairs_keys_launch(
-        ctypes.c_void_p(q_len.data_ptr()), ctypes.c_void_p(t_off.data_ptr()),
-        ctypes.c_void_p(pair_q.data_ptr()),
-        ctypes.c_void_p(pair_t.data_ptr()), ctypes.c_int(n),
-        ctypes.c_longlong(tail_work), ctypes.c_void_p(key.data_ptr()),
-        ctypes.c_void_p(need.data_ptr()), ctypes.c_void_p(stats.data_ptr()),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"sw_pairs key pass launch failed: CUDA error "
-                           f"{err}")
-    count("sw_pairs_keys_launches")
+    _PAIR_KEYS(q_len, t_off, pair_q, pair_t, n, tail_work, key, need, stats)
     return key, need, stats
 
 
@@ -694,12 +619,10 @@ def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
     bulk a thread a pair in one launch and writes each score at its
     pair's position; it raises if a kernel cannot be built or launched.
     On CPU tensors it runs sw_pairs_plain."""
-    dev = prof.device
-    if dev.type == "cpu":
+    if not on_card("sw_pairs", prof):
         return sw_pairs_plain(prof, q_stripe, q_len, t_seqs, t_off, pair_q,
                               pair_t, gap_open, gap_extend)
-    if dev.type != "cuda":
-        raise ValueError(f"sw_pairs: unsupported device {dev}")
+    dev = prof.device
     for name, x, dtype in (("prof", prof, torch.int8),
                            ("q_stripe", q_stripe, torch.int64),
                            ("q_len", q_len, torch.int32),
@@ -707,7 +630,7 @@ def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
                            ("t_off", t_off, torch.int64),
                            ("pair_q", pair_q, torch.int32),
                            ("pair_t", pair_t, torch.int32)):
-        _check(name, x, dtype, dev, "sw_pairs")
+        check("sw_pairs", name, x, dtype, dev)
     if prof.dim() != 3 or tuple(prof.shape[1:]) != (A_PAD, STRIPE):
         raise ValueError(f"sw_pairs: prof must be [S, {A_PAD}, {STRIPE}]")
     if prof.data_ptr() % 16:
@@ -715,7 +638,6 @@ def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
     if t_seqs.numel() < int(t_off[-1]) + T_PAD:
         raise ValueError(f"sw_pairs: t_seqs must hold {T_PAD} bytes past "
                          "its last target")
-    lib = _pairs_library()
     n = pair_q.numel()
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
@@ -740,34 +662,10 @@ def sw_pairs(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
         bases, tops = torch.stack([start[first], end[last]]).tolist()
         size = max(t - s for s, t in zip(bases, tops))
     scratch = torch.empty(2 * max(size, 1), dtype=torch.int32, device=dev)
-    cur = torch.cuda.current_stream(dev)
-    events = None
-    if launch_events is not None:
-        events = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        events[0].record(cur)
     for (a, b), base in zip(spans, bases):
-        err = lib.sw_pairs_launch(
-            ctypes.c_void_p(prof.data_ptr()),
-            ctypes.c_void_p(q_stripe.data_ptr()),
-            ctypes.c_void_p(q_len.data_ptr()),
-            ctypes.c_void_p(t_seqs.data_ptr()),
-            ctypes.c_void_p(t_off.data_ptr()),
-            ctypes.c_void_p(pair_q.data_ptr()),
-            ctypes.c_void_p(pair_t.data_ptr()),
-            ctypes.c_void_p(order[a:].data_ptr()),
-            ctypes.c_void_p(end[a:].data_ptr()), ctypes.c_int(b - a),
-            ctypes.c_int(min(max(n_tail - a, 0), b - a)),
-            ctypes.c_longlong(base), ctypes.c_int(gap_open),
-            ctypes.c_int(gap_extend), ctypes.c_void_p(scratch.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(cur.cuda_stream))
-        if err != 0:
-            raise RuntimeError(f"sw_pairs kernel launch failed: CUDA error "
-                               f"{err}")
-        count("sw_pairs_launches")
-    if events is not None:
-        events[1].record(cur)
-        launch_events.append(events)
+        _PAIRS(prof, q_stripe, q_len, t_seqs, t_off, pair_q, pair_t,
+               order[a:], end[a:], b - a, min(max(n_tail - a, 0), b - a),
+               base, gap_open, gap_extend, scratch, out)
     count("pair_cells", cells)
     return out
 

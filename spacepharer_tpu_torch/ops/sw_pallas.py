@@ -29,17 +29,17 @@ letter as A + 1 (a column of NEG). The mesh packs each target block once
 and calls sw_scores_packed; sw_scores_packed_plain runs the plain scan
 through the same packing, pad letters included.
 """
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..logging import count
-from .sw_packed import T_ALIGN, pack_runs
+from ._cuda import I64, INT, PTR, Entry, check, on_card
+from .sw_packed import T_ALIGN, pack_runs, scratch_slots
 
 NEG = -(10 ** 6)
 STRIPE = 16                 # query rows per register stripe (csrc/sw_dense.cu)
+MAX_ALPHA = 128             # profile columns a launch may have (sw_dense.cu)
 SCRATCH_BYTES = 1 << 31     # stripe-boundary scratch per launch
 PLAIN_MAX_ELEMS = 1 << 26   # DP-state elements per target run (plain)
 
@@ -48,10 +48,14 @@ PLAIN_MAX_ELEMS = 1 << 26   # DP-state elements per target run (plain)
 # sw_dense_batch_launches, and the true DP cells (query rows < q_len x
 # target columns < t_len) they scored in sw_dense_cells; the plain CPU
 # path counts in none of them.
-# None, or a list to which each kernel call appends a (start, stop) pair of
-# CUDA events recorded around its launches alone (packing and the host
-# work of the wrapper left out)
-launch_events = None
+_SIGNATURE = (PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, I64, I64,
+              INT, INT, PTR, PTR)
+_CONSTANTS = {"sw_dense_stripe": STRIPE, "sw_dense_max_alpha": MAX_ALPHA}
+_BATCH = Entry("sw_dense", "sw_dense", _SIGNATURE, counter="sw_dense_batch",
+               cells_counter="sw_dense_cells", constants=_CONSTANTS)
+_ONE_QUERY = Entry("sw_dense", "sw_dense", _SIGNATURE,
+                   counter="sw_dense_one_query",
+                   cells_counter="sw_dense_cells", constants=_CONSTANTS)
 
 
 @dataclass(frozen=True)
@@ -183,19 +187,6 @@ def sw_scores_one_query_plain(q_prof, q_len, t_seqs, t_len,
                                  t_len, gap_open, gap_extend)[0]
 
 
-def _check(x, name, dev, numel=None, dtype=torch.int32):
-    if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-        raise ValueError(f"sw_dense: {name} must be a contiguous {dtype} "
-                         f"tensor on {dev}, got {x.dtype} on {x.device}")
-    if numel is not None and x.numel() != numel:
-        raise ValueError(f"sw_dense: {name} must have {numel} elements, "
-                         f"got {x.numel()}")
-
-
-def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
-
-
 def _launch(q_prof, q_len, targets: PackedTargets, gap_open, gap_extend,
             one_query):
     """Checks, scratch slots and launches of csrc/sw_dense.cu; int32
@@ -203,75 +194,39 @@ def _launch(q_prof, q_len, targets: PackedTargets, gap_open, gap_extend,
     dev = q_prof.device
     Q, LQ, A = q_prof.shape
     T = targets.order.numel()
-    _check(q_prof, "q_prof", dev)
-    _check(q_len, "q_len", dev, Q)
+    check("sw_dense", "q_prof", q_prof, torch.int32, dev)
+    check("sw_dense", "q_len", q_len, torch.int32, dev, Q)
     for name, x, dtype in (("seqs", targets.seqs, torch.uint8),
                            ("off", targets.off, torch.int64),
                            ("lens", targets.lens, torch.int32),
                            ("order", targets.order, torch.int64)):
-        _check(x, f"packed {name}", dev, dtype=dtype)
+        check("sw_dense", f"packed {name}", x, dtype, dev)
     if targets.alpha != A:
         raise ValueError(f"sw_dense: targets packed for {targets.alpha} "
                          f"profile columns, the profile has {A}")
     if targets.seqs.data_ptr() % T_ALIGN:
         raise ValueError("sw_dense: packed targets must be 16-byte aligned")
-    from ._cuda import library
-    lib = library("sw_dense")
-    if lib.sw_dense_stripe() != STRIPE:
-        raise RuntimeError("sw_dense: STRIPE disagrees with the kernel")
-    if A > lib.sw_dense_max_alpha():
-        raise ValueError(f"sw_dense: at most {lib.sw_dense_max_alpha()} "
-                         f"profile columns, got {A}")
+    if A > MAX_ALPHA:
+        raise ValueError(f"sw_dense: at most {MAX_ALPHA} profile columns, "
+                         f"got {A}")
     out = torch.empty((Q, T), dtype=torch.int32, device=dev)
     if Q == 0 or T == 0:
         return out
-    # queries longer than one stripe hand stripe boundaries through a
-    # scratch line of int2 per packed letter; bound the scratch per launch
     q_flat = q_len.reshape(-1)
     lens = q_flat.cpu().clamp(0, LQ)
-    long_q = lens > STRIPE
     t_total = targets.seqs.numel()
-    per_launch = max(1, SCRATCH_BYTES // (8 * t_total))
-    n_slots = min(int(long_q.sum()), per_launch)
+    slot, n_slots, bounds = scratch_slots(lens, STRIPE, t_total,
+                                          SCRATCH_BYTES)
     scratch = torch.empty(max(n_slots * t_total * 2, 2), dtype=torch.int32,
                           device=dev)
-    rank = torch.cumsum(long_q.long(), 0) - 1
-    slot_d = torch.where(long_q, rank % per_launch, -1).int().to(dev)
-    group = torch.clamp_min(rank, 0) // per_launch
-    bounds = [0] + (torch.nonzero(group[1:] != group[:-1]).flatten()
-                    + 1).tolist() + [Q]
-    stream = torch.cuda.current_stream(dev)
-    events = None
-    if launch_events is not None:
-        events = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        events[0].record(stream)
+    slot_d = slot.to(dev)
+    entry = _ONE_QUERY if one_query else _BATCH
     for q0, q1 in zip(bounds[:-1], bounds[1:]):
-        err = lib.sw_dense_launch(
-            _ptr(q_prof[q0:]), _ptr(q_flat[q0:]), _ptr(slot_d[q0:]),
-            _ptr(targets.seqs), _ptr(targets.off), _ptr(targets.lens),
-            _ptr(targets.order), ctypes.c_int(q1 - q0), ctypes.c_int(LQ),
-            ctypes.c_int(A), ctypes.c_int(T), ctypes.c_longlong(t_total),
-            ctypes.c_longlong(T), ctypes.c_int(gap_open),
-            ctypes.c_int(gap_extend), _ptr(scratch), _ptr(out[q0:]),
-            ctypes.c_void_p(stream.cuda_stream))
-        if err != 0:
-            raise RuntimeError(f"sw_dense kernel launch failed: CUDA error "
-                               f"{err}")
-        count("sw_dense_one_query_launches" if one_query
-              else "sw_dense_batch_launches")
-        count("sw_dense_cells", int(lens[q0:q1].sum()) * targets.n_letters)
-    if events is not None:
-        events[1].record(stream)
-        launch_events.append(events)
+        entry(q_prof[q0:], q_flat[q0:], slot_d[q0:], targets.seqs,
+              targets.off, targets.lens, targets.order, q1 - q0, LQ, A, T,
+              t_total, T, gap_open, gap_extend, scratch, out[q0:],
+              cells=int(lens[q0:q1].sum()) * targets.n_letters)
     return out
-
-
-def _device(x, what):
-    dev = x.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {dev}")
-    return dev
 
 
 def sw_scores_packed(q_prof, q_len, targets: PackedTargets,
@@ -280,7 +235,7 @@ def sw_scores_packed(q_prof, q_len, targets: PackedTargets,
     [Q, T] in the caller's order. On CUDA tensors this launches
     csrc/sw_dense.cu and raises if the kernel cannot be built or
     launched; on CPU tensors it runs sw_scores_packed_plain."""
-    if _device(q_prof, "sw_scores_packed").type == "cpu":
+    if not on_card("sw_scores_packed", q_prof):
         return sw_scores_packed_plain(q_prof, q_len, targets, gap_open,
                                       gap_extend)
     return _launch(q_prof, q_len, targets, gap_open, gap_extend, False)
@@ -288,13 +243,13 @@ def sw_scores_packed(q_prof, q_len, targets: PackedTargets,
 
 def _dispatch(plain, q_prof, q_len, t_seqs, t_len, gap_open, gap_extend,
               one_query):
-    dev = _device(q_prof, "sw_dense")
-    if dev.type == "cpu":
+    if not on_card("sw_dense", q_prof):
         return plain(q_prof, q_len, t_seqs, t_len, gap_open, gap_extend)
+    dev = q_prof.device
     if t_seqs.dim() != 2:
         raise ValueError("sw_dense: t_seqs must be [LT, T]")
-    _check(t_seqs, "t_seqs", dev)
-    _check(t_len, "t_len", dev, t_seqs.shape[1])
+    check("sw_dense", "t_seqs", t_seqs, torch.int32, dev)
+    check("sw_dense", "t_len", t_len, torch.int32, dev, t_seqs.shape[1])
     prof = q_prof[None] if one_query else q_prof
     out = _launch(prof, q_len, pack_targets(t_seqs.t(), t_len,
                                             prof.shape[2]),
